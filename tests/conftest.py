@@ -7,6 +7,12 @@ from repro.configs import get_config
 from repro.models import model as model_lib
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); skips without one"
+    )
+
+
 def hypothesis_tools():
     """(given, settings, st) — real hypothesis when installed, else stubs
     that mark only the property tests skipped so the plain tests in the
