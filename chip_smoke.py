@@ -6,10 +6,17 @@ Phases, each failing the run on its own failure:
 
 1. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and print each one's ptxas summary.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and the kernel-test shapes, in f32 (rtol = atol =
-   1e-5) and bf16 (2e-2), both ``landmark_score`` branches; time the
-   kernel, the plain version and a one-call library yardstick.
+2. Print each kernel's launch plan at the main path's shape (grid,
+   cluster, shared-memory bytes) and its ptxas registers and spills. Hold
+   each kernel against its plain PyTorch version on the card, at the main
+   path's shapes, the kernel-test shapes and the edge shapes (T = 1, 33,
+   4096; Hkv = 8; G = 20; a CTA range and a lane with no valid key), in
+   f32 (rtol = atol = 1e-5) and bf16 (2e-2), both ``landmark_score``
+   branches, each twice to check that the results repeat bitwise; time the
+   kernel, the plain version and a one-call library yardstick. Each
+   kernel's log line also shows its time before the redesign
+   (``EARLIER_MS``, a constant: the ``kernels`` line carries only numbers
+   this run measured, and ``bound_ms``).
 3. Check the port's model on the card against the same model on the CPU on
    a small input (reduced config, f32, no TF32): logits within 1e-4.
 4. Drive the main path at full width: Qwen2.5-0.5B (24 layers, d_model 896,
@@ -47,7 +54,12 @@ TEST_SHAPES = [  # B, H, Hkv, D, T of the kernel tests, and one wide group
     (1, 4, 4, 64, 128), (2, 8, 2, 64, 200), (2, 9, 3, 64, 321),
     (3, 16, 2, 80, 1000), (1, 32, 8, 128, 4096),
     (2, 40, 2, 64, 96),  # G = 20: more query rows than the kernels hold in registers at once
+    (2, 8, 2, 64, 1), (2, 8, 2, 64, 33),  # one key; two ranges and a ragged tile
+    (2, 16, 8, 64, 4096),  # Hkv = 8 at the longest T
 ]
+# The kernels' times before their redesign, main-path shapes, bf16, L2
+# flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_MS = {"synapse_attention": 0.0820, "landmark_score": 0.0592}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TIMED_WINDOWS = 5  # main-path windows timed (the first is warm-up), then one profiled
 
@@ -65,8 +77,11 @@ def card_line() -> str:
 def time_ms(fn, iters: int = 30) -> float:
     """Median device time of one call with the L2 cache flushed before it
     (the 50 MB L2 is cold for these callers: a spawn reads the parent cache
-    once, and a decode step streams ~1 GB of weights between attends)."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    once, and a decode step streams ~1 GB of weights between attends). The
+    flush is large (1 GiB) so that the device is still zeroing it when the
+    host has enqueued the call: the host's enqueue time, which a call of
+    many small launches can spend, does not enter the reading."""
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     pairs = []
@@ -93,45 +108,88 @@ def bound(byts: int, flops: int) -> dict:
                 bytes=byts, flops=flops)
 
 
+def kernel_inputs(shape, dtype, g):
+    """q [B,H,D], keys and values [B,T,Hkv,D], valid [B,T] (about 70 %
+    true, key 0 always) and 7 landmarks [B,7,D], random from ``g`` on its
+    device."""
+    B, H, Hkv, D, T = shape
+    r = lambda *s: torch.randn(s, generator=g, device=g.device).to(dtype)
+    valid = torch.rand((B, T), generator=g, device=g.device) < 0.7
+    valid[:, 0] = True
+    return r(B, H, D), r(B, T, Hkv, D), r(B, T, Hkv, D), valid, r(B, 7, D)
+
+
+def new_engine():
+    """The main path's engine: Qwen2.5-0.5B at full width, random weights
+    from seed 0, greedy, the ``MAIN`` settings. Returns (config, engine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tm
+    from repro_torch.serving.sampler import SamplingParams
+
+    cfg = get_config("qwen2.5-0.5b")
+    prism = Prism(tm.init_params(cfg, seed=0), cfg)
+    return cfg, CortexEngine(prism, ByteTokenizer(cfg.vocab_size), sampling=SamplingParams(greedy=True), **MAIN)
+
+
 # ---------------------------------------------------------------------------
 def check_kernels(dev):
     """Phase 2. Returns {name: record} with the errors and times."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import landmark_score as ls
     from repro_torch.kernels import ref
     from repro_torch.kernels import synapse_attention as sa
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    B, H, Hkv, D, T = SYN_MAIN
+    log(f"plan synapse_attention shape={SYN_MAIN} bf16: {sa.launch_plan(B, T, H, Hkv, D, 2)}")
+    B, H, Hkv, D, T = LM_MAIN
+    log(f"plan landmark_score shape={LM_MAIN} bf16 density-only: {ls.launch_plan(B, T, H, Hkv, D, 0, 2)}")
+    for name in ("synapse_attention", "landmark_score"):
+        log(f"ptxas {name}: {build.ptxas_info(name)}")
 
-    def inputs(shape, dtype):
-        B, H, Hkv, D, T = shape
-        r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
-        valid = torch.rand((B, T), generator=g, device=dev) < 0.7
-        valid[:, 0] = True
-        return r(B, H, D), r(B, T, Hkv, D), r(B, T, Hkv, D), valid, r(B, 7, D)
+    g = torch.Generator(device=dev).manual_seed(0)
+    inputs = lambda shape, dtype: kernel_inputs(shape, dtype, g)
+
+    def repeat_bitwise(fn, got):
+        again = fn()
+        if not all(a is b is None or torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError("two calls on the same inputs differ: the kernel is not repeatable")
 
     worst = {"synapse_attention": 0.0, "landmark_score": 0.0}
-    for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES:
+    # the main side-decode shape again, with the last CTA's range of lane 0
+    # and all of lane 1 invalid
+    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES] + [(SYN_MAIN, "invalid")]
+    for shape, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             t = dict(rtol=TOL[dtype], atol=TOL[dtype])
             q, k, v, valid, lm = inputs(shape, dtype)
+            if mask == "invalid":
+                B, H, Hkv, D, T = shape
+                a, b = sa.launch_plan(B, T, H, Hkv, D, q.element_size()).ranges[-1]
+                valid[0, a:b] = False
+                valid[1] = False
             out, mass = sa.synapse_attention(q, k, v, valid)
             out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid)
             torch.testing.assert_close(out.float(), out_r.float(), **t)
             torch.testing.assert_close(mass, mass_r, **t)
             torch.testing.assert_close(mass.sum(-1), torch.full_like(mass[:, 0], shape[1]), rtol=1e-3, atol=0)
+            repeat_bitwise(lambda: sa.synapse_attention(q, k, v, valid), (out, mass))
             e_sa = max(max_err(out, out_r), max_err(mass, mass_r))
             e_ls = 0.0
             for landmarks in (None, lm):
                 logits, dist = ls.landmark_score(q, k, landmarks)
                 logits_r, dist_r = ref.landmark_score_ref(q, k, landmarks)
                 torch.testing.assert_close(logits, logits_r, **t)
+                repeat_bitwise(lambda: ls.landmark_score(q, k, landmarks), (logits, dist))
                 e_ls = max(e_ls, max_err(logits, logits_r))
                 if landmarks is None:
                     assert dist is None
                 else:
                     torch.testing.assert_close(dist, dist_r, **t)
                     e_ls = max(e_ls, max_err(dist, dist_r))
-            log(f"check shape={shape} dtype={str(dtype)[6:]} "
+            log(f"check shape={shape}{' ' + mask if mask else ''} dtype={str(dtype)[6:]} "
                 f"synapse_attention max_abs_err={e_sa:.3g} landmark_score max_abs_err={e_ls:.3g}")
             worst["synapse_attention"] = max(worst["synapse_attention"], e_sa)
             worst["landmark_score"] = max(worst["landmark_score"], e_ls)
@@ -148,6 +206,7 @@ def check_kernels(dev):
         replaces="src/repro/kernels/synapse_attention.py:131",
         max_abs_err=worst["synapse_attention"],
         ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
+        earlier_ms=EARLIER_MS["synapse_attention"],
         plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
         # SDPA gives out but not the per-key mass: a partial yardstick
         library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -164,6 +223,7 @@ def check_kernels(dev):
         replaces="src/repro/kernels/landmark_score.py:82",
         max_abs_err=worst["landmark_score"],
         ms=time_ms(lambda: ls.landmark_score(q, k)),
+        earlier_ms=EARLIER_MS["landmark_score"],
         plain_ms=time_ms(lambda: ref.landmark_score_ref(q, k)),
         library_ms=time_ms(lambda: torch.matmul(qg, kt)),  # the logits' product alone
         **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
@@ -239,18 +299,10 @@ def profile_window(eng):
 
 def drive_main_path(card: str) -> dict:
     """Phase 4: the engine at full width. Returns the launch counts."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.engine import CortexEngine
-    from repro_torch.core.prism import Prism
-    from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.kernels import ops
-    from repro_torch.models import model as tm
-    from repro_torch.serving.sampler import SamplingParams
 
-    cfg = get_config("qwen2.5-0.5b")
     t0 = time.perf_counter()
-    prism = Prism(tm.init_params(cfg, seed=0), cfg)
-    eng = CortexEngine(prism, ByteTokenizer(cfg.vocab_size), sampling=SamplingParams(greedy=True), **MAIN)
+    cfg, eng = new_engine()
     torch.cuda.synchronize()
     log(f"main path: {cfg.name} L={cfg.n_layers} d_model={cfg.d_model} vocab={cfg.vocab_size} "
         f"compute={eng.cfg.compute_dtype} set up in {time.perf_counter() - t0:.1f} s")
@@ -354,7 +406,7 @@ def main() -> int:
 
     kernels = [dict(recs[name], launches=counts[name]) for name in ops.KERNELS]
     for k in kernels:
-        for key in ("shape", "dtype", "bytes", "flops"):
+        for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)
     log(json.dumps({"kernels": kernels}))
     log(card)

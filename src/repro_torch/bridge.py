@@ -21,12 +21,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
 
-def to_torch(a, device=None) -> torch.Tensor:
+def to_torch(a, device) -> torch.Tensor:
+    """numpy -> tensor on ``device`` (named by the caller; bf16 through f32)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
@@ -43,13 +45,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     """The JAX params pytree (numpy leaves) -> the port's params on
-    ``device``. Checks the tree's keys against what ``cfg`` needs."""
+    ``device`` (None: the card, raising where there is none). Checks the
+    tree's keys against what ``cfg`` needs."""
     want = {"embed", "groups", "final_norm"} | (set() if cfg.tie_embeddings else {"head"})
     if set(np_tree) != want:
         raise ValueError(f"params tree has keys {sorted(np_tree)}, config {cfg.name} needs {sorted(want)}")
     if len(np_tree["groups"]) != len(cfg.layer_groups()):
         raise ValueError("params tree has a different number of layer groups than the config")
-    return model_lib.tree_map(lambda a: to_torch(a, device), dict(np_tree))
+    dev = resolve_device(device)
+    return model_lib.tree_map(lambda a: to_torch(a, dev), dict(np_tree))
 
 
 def params_to_numpy(params):
@@ -63,11 +67,13 @@ def _fields(obj) -> dict:
 
 
 def cache_from_numpy(obj, device=None):
-    """One FullCache / SynapseCache from numpy fields (object or dict)."""
+    """One FullCache / SynapseCache from numpy fields (object or dict), on
+    ``device`` (None: the card)."""
+    dev = resolve_device(device)
     fields = _fields(obj)
     cls = cache_lib.SynapseCache if "lm_k" in fields else cache_lib.FullCache
     names = [f.name for f in dataclasses.fields(cls)]
-    return cls(**{n: to_torch(fields[n], device) for n in names})
+    return cls(**{n: to_torch(fields[n], dev) for n in names})
 
 
 def cache_to_numpy(cache) -> dict:
@@ -76,11 +82,12 @@ def cache_to_numpy(cache) -> dict:
 
 def caches_from_numpy(obj, device=None) -> model_lib.ModelCaches:
     """ModelCaches from an object or dict with ``groups`` (and ``shared``,
-    which must be None in this slice)."""
+    which must be None in this slice), on ``device`` (None: the card)."""
+    dev = resolve_device(device)
     fields = _fields(obj)
     if fields.get("shared") is not None:
         raise NotImplementedError("shared-attention caches are ROADMAP queue-1 item 13")
-    return model_lib.ModelCaches(groups=tuple(cache_from_numpy(g, device) for g in fields["groups"]))
+    return model_lib.ModelCaches(groups=tuple(cache_from_numpy(g, dev) for g in fields["groups"]))
 
 
 def caches_to_numpy(caches: model_lib.ModelCaches) -> dict:

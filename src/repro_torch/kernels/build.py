@@ -27,6 +27,12 @@ NVCC_FLAGS = [
 ]
 
 
+def align16(n: int) -> int:
+    """``n`` rounded up to a multiple of 16 (the kernels' shared-memory
+    regions start 16-byte aligned)."""
+    return (n + 15) // 16 * 16
+
+
 def nvcc_path() -> str:
     for cand in ("/usr/local/cuda/bin/nvcc", shutil.which("nvcc")):
         if cand and Path(cand).exists():
@@ -51,11 +57,19 @@ def _nvcc_cmd(name: str, out: Path) -> list[str]:
 
 
 def ptxas_summary(log: str) -> str:
-    """The ptxas register/shared-memory lines of an nvcc log, one string."""
+    """The ptxas register, shared-memory and spill lines of an nvcc log,
+    one string."""
     return " | ".join(
         line.strip() for line in log.splitlines()
-        if re.search(r"ptxas info\s*: (Used|Compiling)", line)
+        if re.search(r"ptxas info\s*: (Used|Compiling)|bytes spill", line)
     )
+
+
+def ptxas_info(name: str) -> str:
+    """The ptxas summary (registers, shared memory, spills) of the built
+    library of ``name``, kept beside it by :func:`build_all`."""
+    p = library_path(name).with_suffix(".ptxas")
+    return p.read_text() if p.exists() else "not built"
 
 
 def build_all(names) -> dict[str, str]:
@@ -80,6 +94,7 @@ def build_all(names) -> dict[str, str]:
             continue
         os.replace(tmp, out)
         logs[name] = ptxas_summary(stderr + stdout)
+        out.with_suffix(".ptxas").write_text(logs[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

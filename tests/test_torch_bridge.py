@@ -78,3 +78,43 @@ def test_caches_round_trip_bitwise(kind, dtype):
     cls = jcache.SynapseCache if kind == "synapse" else jcache.FullCache
     rebuilt = cls(**{f: jnp.asarray(v).astype(getattr(np_side.groups[0], f).dtype) for f, v in back["groups"][0].items()})
     jax.tree.map(_bitwise_equal, jax.tree.map(np.asarray, rebuilt), np_side.groups[0])
+
+
+def _bridge_inputs():
+    jcfg = jax_get_config("qwen2.5-0.5b", reduced=True)
+    np_tree = jax.tree.map(np.asarray, jmodel.init_params(jax.random.key(3), jcfg))
+    spec = jmodel.CacheSpec(kind="synapse", capacity=16, n_landmarks=4, window=4, n_inject=2)
+    np_caches = jax.tree.map(np.asarray, _random_leaves(jmodel.init_caches(jcfg, 2, spec), 1))
+    return np_tree, np_caches
+
+
+_ENTRY_POINTS = {
+    "params_from_jax": lambda t, c, **kw: bridge.params_from_jax(t, get_config("qwen2.5-0.5b", reduced=True), **kw),
+    "cache_from_numpy": lambda t, c, **kw: bridge.cache_from_numpy(c.groups[0], **kw),
+    "caches_from_numpy": lambda t, c, **kw: bridge.caches_from_numpy(c, **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_bridge_without_device_asks_for_the_card(entry, monkeypatch):
+    """No device named means the card: with none, the bridge raises instead
+    of handing back CPU tensors."""
+    np_tree, np_caches = _bridge_inputs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _ENTRY_POINTS[entry](np_tree, np_caches)
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_bridge_cpu_device_round_trips_bitwise(entry):
+    np_tree, np_caches = _bridge_inputs()
+    got = _ENTRY_POINTS[entry](np_tree, np_caches, device="cpu")
+    if entry == "params_from_jax":
+        assert got["embed"].device.type == "cpu"
+        jax.tree.map(_bitwise_equal, np_tree, bridge.params_to_numpy(got))
+        return
+    groups = [got] if entry == "cache_from_numpy" else list(got.groups)
+    for g_ref, g in zip(np_caches.groups, groups):
+        for f, a in bridge.cache_to_numpy(g).items():
+            assert getattr(g, f).device.type == "cpu"
+            _bitwise_equal(np.asarray(getattr(g_ref, f)).astype(a.dtype), a)

@@ -28,6 +28,9 @@ SHAPES = [
     (8, 14, 2, 64, 144),     # side-lane decode of the paper's model
     (24, 14, 2, 64, 1024),   # a spawn's sweep of the paper's model
     (2, 40, 2, 64, 96),      # G = 20: more rows than the kernels hold in registers at once
+    (2, 8, 2, 64, 1),        # one key: a cluster of one CTA, a one-key tile
+    (2, 8, 2, 64, 33),       # two ranges of 16 and 17 keys; a ragged tile
+    (2, 16, 8, 64, 4096),    # Hkv = 8 at the longest T: streamed K/V chunks
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -100,15 +103,41 @@ def test_masked_keys_get_zero_mass_on_card(card):
     np.testing.assert_allclose(float(mass.sum()), 4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_invalid_cta_range_and_lane_on_card(card, dtype):
+    """One CTA's whole key range invalid (it adds e^(-1e30 - M) = 0) and one
+    lane with no valid key at all (uniform weights, no NaN)."""
+    shape = (3, 14, 2, 64, 144)
+    q, k, v, valid = _inputs(shape, dtype, card, seed=2)
+    plan = sa.launch_plan(3, 144, 14, 2, 64, q.element_size())
+    a, b = plan.ranges[2]
+    valid[0, a:b] = False
+    valid[1] = False
+    out, mass = sa.synapse_attention(q, k, v, valid)
+    out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid)
+    torch.testing.assert_close(out.float(), out_r.float(), **_tol(dtype))
+    torch.testing.assert_close(mass, mass_r, **_tol(dtype))
+    assert float(mass[0, a:b].abs().max()) == 0.0
+    torch.testing.assert_close(mass[1], torch.full_like(mass[1], 14 / 144), rtol=1e-5, atol=1e-6)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, k, v, valid = _inputs((1, 4, 2, 64, 128), torch.float32, card)
     with pytest.raises(TypeError):
         sa.synapse_attention(q.half(), k.half(), v.half(), valid)
     with pytest.raises(ValueError, match="contiguous"):
         sa.synapse_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, valid)
-    long_k = torch.zeros((1, 60000, 2, 64), device=card)
+    # 32 heads x a 2048-key range of f32 scores alone exceed shared memory
+    long_k = torch.zeros((1, 16384, 2, 64), device=card)
     with pytest.raises(ValueError, match="shared-memory"):
-        sa.synapse_attention(q, long_k, long_k, torch.ones((1, 60000), dtype=torch.bool, device=card))
+        sa.synapse_attention(torch.zeros((1, 32, 64), device=card), long_k, long_k,
+                             torch.ones((1, 16384), dtype=torch.bool, device=card))
+    # a kv head's key row of 6 x 4 = 24 bytes is no multiple of 16
+    odd_q, odd_k = torch.zeros((1, 4, 6), device=card), torch.zeros((1, 8, 2, 6), device=card)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sa.synapse_attention(odd_q, odd_k, odd_k, torch.ones((1, 8), dtype=torch.bool, device=card))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ls.landmark_score(odd_q, odd_k)
     with pytest.raises(ValueError, match="shared-memory"):
         ls.landmark_score(torch.zeros((1, 1024, 64), device=card), torch.zeros((1, 8, 2, 64), device=card))
     with pytest.raises(ValueError, match="multiple"):
