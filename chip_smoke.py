@@ -24,7 +24,25 @@ Phases, each failing the run on its own failure:
    prompt spawns side agents, until every side has merged. Launch counters
    are zeroed just before and read just after; one steady window runs under
    ``torch.cuda.set_sync_debug_mode("error")``.
-5. Print the ``kernels`` JSON line, the card's name and power limit, and
+5. Serve at full width through the serving entry point's classes (the
+   front end over each backend, as ``repro_torch.launch.serve`` builds
+   them): the pipelined, adaptive-window CortexEngine with four requests
+   from two weighted tenants, one prompt spawning sides (every request
+   ``ok``, a spawn and a merge, overlapped drains, a window longer than
+   ``sync_every``, one ``landmark_score`` launch per spawn and one
+   ``synapse_attention`` launch per layer and side tick, each request's
+   first tokens, every side stream and the spawns and merges in order equal
+   to a ``pipeline=False`` run's, every window's dispatch and overlapped
+   post-processing under ``set_sync_debug_mode("error")``); the front end
+   over the plain BatchServer's pipelined loop, bitwise equal to the
+   server's serial loop; one request over the HTTP/SSE transport, ``ok``,
+   its token count over ``GET /v1/metrics`` equal to the in-process one.
+   On the full config that is a timing and wire-path run (the random
+   full-vocabulary model emits no byte id, so the texts are empty); on the
+   reduced config the SSE text, not empty, must equal the in-process
+   stream's. Each mode prints its TTFT and tick percentiles, tokens/s,
+   memory and seconds.
+6. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
@@ -32,9 +50,11 @@ With no card it exits non-zero at once and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
+from collections import Counter
 import sys
 import time
 from pathlib import Path
@@ -297,6 +317,17 @@ def profile_window(eng):
     }))
 
 
+def check_launches(label: str, counts: dict, spawns: int, n_layers: int, side_ticks: int):
+    """One ``landmark_score`` launch per spawn, one ``synapse_attention``
+    launch per layer in every tick that stepped the side lanes."""
+    if counts["landmark_score"] != spawns:
+        raise AssertionError(f"{label}: landmark_score launched {counts['landmark_score']} times "
+                             f"for {spawns} spawns")
+    if counts["synapse_attention"] != n_layers * side_ticks:
+        raise AssertionError(f"{label}: synapse_attention launched {counts['synapse_attention']} times, "
+                             f"expected {n_layers} x {side_ticks} side ticks")
+
+
 def drive_main_path(card: str) -> dict:
     """Phase 4: the engine at full width. Returns the launch counts."""
     from repro_torch.kernels import ops
@@ -354,11 +385,7 @@ def drive_main_path(card: str) -> dict:
         raise AssertionError("sides still live after 64 windows")
     if not spawns or not any(m["accepted"] for m in merges):
         raise AssertionError(f"expected a spawn and an accepted merge, history={eng.history}")
-    if counts["landmark_score"] != len(spawns):
-        raise AssertionError(f"landmark_score launched {counts['landmark_score']} times for {len(spawns)} spawns")
-    if counts["synapse_attention"] != n_layers * side_ticks:
-        raise AssertionError(f"synapse_attention launched {counts['synapse_attention']} times, expected "
-                             f"{n_layers} x {side_ticks} side ticks")
+    check_launches("main path", counts, len(spawns), n_layers, side_ticks)
     hidden = eng.state.main_hidden
     if not torch.isfinite(hidden).all() or hidden.shape != (1, cfg.d_model):
         raise AssertionError("river hidden state is not finite / of the expected shape")
@@ -378,6 +405,283 @@ def drive_main_path(card: str) -> dict:
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": counts,
     }))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+SERVE = dict(n_main=2, max_side=8, main_capacity=1024, sync_every=8, max_window=64, theta=-1.0)
+SERVE_TENANTS = {"gold": 4.0, "free": 1.0}
+SERVE_REQUESTS = [  # tenant, prompt
+    ("gold", "Question: what makes this system scale? [TASK: verify the memory math] "
+             "[TASK: list the open questions] Answer:"),
+    ("free", "Summarize the warp-cortex architecture in one line."),
+    ("gold", "The river keeps thinking while nobody asks it anything."),
+    ("free", "A second tenant waits for its turn at the card."),
+]
+SERVE_TOKENS = 128     # max_new_tokens of each cortex-mode and batch-mode request
+SERVE_LISTEN_TOKENS = 32
+
+
+def no_sync(fn, counter=None):
+    """``fn`` under ``set_sync_debug_mode("error")``: a host sync inside it
+    raises. ``counter`` (a one-item list) counts the guarded calls."""
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if counter is not None:
+            counter[0] += 1
+        return out
+    return guarded
+
+
+def guard_window_no_sync(eng, counter=None):
+    """Make a host sync an error in every window's dispatch and ring
+    prefetch and in every overlapped post-processing of ``eng`` (the
+    regions the pipelined run keeps free of host reads). ``counter`` (a
+    one-item list) counts the guarded overlapped post-processings. The
+    wrappers tie the engine into a reference cycle: ``gc.collect()`` after
+    dropping it."""
+    eng._dispatch_window = no_sync(eng._dispatch_window)
+    eng._prefetch_rings = no_sync(eng._prefetch_rings)
+    post = eng._postprocess
+    guarded_post = no_sync(post, counter)
+    eng._postprocess = lambda rings, n, overlapped=False: (
+        guarded_post if overlapped else post)(rings, n, overlapped=overlapped)
+
+
+def _serving_summary(mode, fe, seconds, card, **extra) -> dict:
+    """The numbers a serving mode prints: TTFT and tick percentiles (front
+    end clocks on the host), tokens/s over the serve, memory, seconds."""
+    m = fe.metrics()
+    tokens = sum(r["tokens_out"] for r in m["requests"])
+    out = {
+        "serving_mode": mode, "card": card, "requests": len(m["requests"]),
+        "statuses": sorted(r["status"] for r in m["requests"]),
+        "ttft_p50_ms": m["ttft_s"]["p50"] * 1e3, "ttft_p99_ms": m["ttft_s"]["p99"] * 1e3,
+        "tick_p50_ms": m["tick_latency_s"]["p50"] * 1e3, "tick_p99_ms": m["tick_latency_s"]["p99"] * 1e3,
+        "tick_samples": m["tick_latency_s"]["n"], "tokens_out": tokens, "serve_s": seconds,
+        "tokens_per_s": tokens / seconds,
+        "token_shares": {t: v["token_share"] for t, v in m["tenants"].items()},
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **extra,
+    }
+    log(json.dumps(out))
+    return out
+
+
+def _serve_cortex(prism, tok, pipeline: bool, guard: bool):
+    """One cortex-mode serve of SERVE_REQUESTS. Returns (front end, engine,
+    each agent's tokens by agent id (rivers and sides), seconds, guarded
+    overlapped post-processings, side ticks: the ticks of the windows
+    dispatched with a side lane live)."""
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.sampler import SamplingParams
+
+    eng = CortexEngine(prism, tok, sampling=SamplingParams(greedy=True), pipeline=pipeline, **SERVE)
+    fe = ServingFrontend(eng, tenants=SERVE_TENANTS, default_max_new_tokens=SERVE_TOKENS)
+    streams: dict[str, list] = {}
+    fe_tap = eng.stream_tap
+
+    def tap(view, chunk, toks):
+        streams.setdefault(view.agent_id, []).extend(toks)
+        fe_tap(view, chunk, toks)
+    eng.stream_tap = tap
+    overlapped, side_ticks = [0], [0]
+    if guard:
+        guard_window_no_sync(eng, overlapped)
+    dispatch = eng._dispatch_window
+
+    def counted(n):
+        # the engine steps the side lanes for the whole window when one is
+        # live at its dispatch (host mirrors only)
+        side_ticks[0] += n if any(s.active for s in eng.sides) else 0
+        dispatch(n)
+    eng._dispatch_window = counted
+    for tenant, prompt in SERVE_REQUESTS:
+        fe.submit(prompt, tenant=tenant)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fe.serve()
+    torch.cuda.synchronize()
+    return fe, eng, streams, time.perf_counter() - t, overlapped[0], side_ticks[0]
+
+
+def _spawns_and_merges(history) -> list:
+    return [tuple(sorted(e.items())) for e in history if e["event"] in ("spawn", "merge")]
+
+
+def _cortex_mode(prism, tok, card: str) -> dict:
+    """The front end over the pipelined, adaptive engine, checked, then over
+    the serial engine for the comparison: each request's first tokens, every
+    side stream, and the spawns and merges in order. Returns the launch
+    counts of the pipelined serve."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    fe, eng, streams, seconds, guarded, side_ticks = _serve_cortex(prism, tok, pipeline=True, guard=True)
+    counts = ops.launch_counts()
+    events = [e["event"] for e in eng.history]
+    bad = [r.rid for r in fe.requests.values() if r.status != "ok"]
+    if bad:
+        raise AssertionError(f"cortex mode: requests {bad} did not end ok")
+    if "spawn" not in events or "merge" not in events:
+        raise AssertionError(f"cortex mode: no spawn and merge in the history: {events}")
+    if eng.stats["overlapped_drains"] == 0 or guarded == 0:
+        raise AssertionError("cortex mode: no drain overlapped the next window")
+    if max(eng.stats["window_hist"]) <= eng.sync_every:
+        raise AssertionError(f"cortex mode: no window longer than sync_every: {eng.stats['window_hist']}")
+    check_launches("cortex mode", counts, events.count("spawn"), eng.cfg.n_layers, side_ticks)
+    if any(r.stream.text != tok.decode(streams[r.backend_id]) for r in fe.requests.values()):
+        raise AssertionError("cortex mode: a request's stream is not the decode of its tokens")
+    _serving_summary(
+        "cortex", fe, seconds, card, launches=counts, history=dict(Counter(events)),
+        overlapped_drains=eng.stats["overlapped_drains"], window_hist=eng.stats["window_hist"],
+        drains=eng.stats["drains"], tick_dispatches=eng.stats["tick_dispatches"],
+        ticks=eng.stats["ticks"], side_ticks=side_ticks, guarded_overlapped=guarded)
+    aids = [(r.rid, r.backend_id) for r in fe.requests.values()]
+    sides = {e["agent"] for e in eng.history if e["event"] == "spawn"}
+    spawns_merges = _spawns_and_merges(eng.history)
+    del fe, eng
+    gc.collect()  # the guard wrappers tie the engine into a reference cycle
+    fe_s, eng_s, streams_s, seconds_s, _, _ = _serve_cortex(prism, tok, pipeline=False, guard=False)
+    # a request's river runs on until the boundary where its budget is met,
+    # and the windows differ: only the first SERVE_TOKENS are the request's
+    for rid, aid in aids:
+        a, b = streams[aid][:SERVE_TOKENS], streams_s[aid][:SERVE_TOKENS]
+        if a != b or tok.decode(a) != tok.decode(b):
+            raise AssertionError(f"cortex mode: request {rid}'s first {SERVE_TOKENS} tokens differ "
+                                 "between the pipelined and the serial engine")
+    # a side runs to its merge on the serial engine's virtual ticks
+    for aid in sorted(sides):
+        if streams.get(aid) != streams_s.get(aid):
+            raise AssertionError(f"cortex mode: side {aid}'s tokens differ between the pipelined "
+                                 "and the serial engine")
+    if spawns_merges != _spawns_and_merges(eng_s.history):
+        raise AssertionError("cortex mode: the spawns and merges (agents, tasks, gate scores, "
+                             "thoughts, order) differ between the pipelined and the serial engine")
+    log(json.dumps({"serving_mode": "cortex", "serial_serve_s": seconds_s,
+                    "serial_tokens_out": sum(r.tokens_out for r in fe_s.requests.values()),
+                    "serial_window_hist": eng_s.stats["window_hist"],
+                    "pipelined_equals_serial_first_tokens": SERVE_TOKENS,
+                    "pipelined_equals_serial_sides": sorted(sides),
+                    "pipelined_equals_serial_spawns_merges": len(spawns_merges),
+                    "phase_s": time.perf_counter() - t0}))
+    return counts
+
+
+def _batch_mode(params, cfg, tok, card: str):
+    """The front end over the pipelined (speculative) BatchServer, against
+    the server's own serial loop on the same prompts. (The front end's
+    serve(pipeline=False) over a BatchServer admits nothing, as in the
+    reference: ROADMAP queue 3.)"""
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.server import BatchServer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    srv = BatchServer(params, cfg, tok, n_lanes=4, capacity=512, sampling=SamplingParams(greedy=True))
+    bfe = ServingFrontend(srv, tenants=SERVE_TENANTS, default_max_new_tokens=SERVE_TOKENS)
+    for tenant, prompt in SERVE_REQUESTS:
+        bfe.submit(prompt, tenant=tenant)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bfe.serve(pipeline=True)
+    torch.cuda.synchronize()
+    _serving_summary("batch", bfe, time.perf_counter() - t, card, rollbacks=srv.stats["rollbacks"],
+                     overlapped=srv.stats["overlapped"], steps=srv.stats["steps"])
+    piped = {r.prompt: (r.status, r.stream.text, r.tokens_out) for r in bfe.requests.values()}
+    piped_tokens = {r.prompt: r.tokens for r in srv.finished}
+    srv = BatchServer(params, cfg, tok, n_lanes=4, capacity=512, sampling=SamplingParams(greedy=True))
+    for _, prompt in SERVE_REQUESTS:
+        srv.submit(prompt, max_new_tokens=SERVE_TOKENS)
+    t = time.perf_counter()
+    done = srv.run_until_done(pipeline=False)
+    torch.cuda.synchronize()
+    serial = {r.prompt: (r.status, r.text, len(r.tokens) - r.prompt_len) for r in done}
+    if piped != serial or piped_tokens != {r.prompt: r.tokens for r in done}:
+        raise AssertionError("batch mode: the pipelined serve differs from the serial loop")
+    if any(st != "ok" for st, _, _ in piped.values()):
+        raise AssertionError(f"batch mode: statuses {piped}")
+    log(json.dumps({"serving_mode": "batch", "serial_s": time.perf_counter() - t,
+                    "serial_steps": srv.stats["steps"], "pipelined_equals_serial": True,
+                    "phase_s": time.perf_counter() - t0}))
+
+
+def _listen_mode(prism, card: str, label: str):
+    """One cortex request over HTTP/SSE: it must end ``ok`` with its SSE
+    text equal to the in-process stream's, its token count over ``GET
+    /v1/metrics`` equal to the in-process request's, and the pump without
+    an error. On the full config it is a timing and wire-path run: the
+    random full-vocabulary model emits no byte id, so both texts are empty
+    there; the reduced config's 512-id vocabulary gives a text to compare."""
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.transport import TransportServer, generate_sync, http_json
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = CortexEngine(prism, ByteTokenizer(prism.cfg.vocab_size), sampling=SamplingParams(greedy=True), **SERVE)
+    lfe = ServingFrontend(eng, tenants=SERVE_TENANTS)
+    with TransportServer(lfe, "127.0.0.1", 0) as srv:
+        t = time.perf_counter()
+        out = generate_sync(srv.host, srv.port, SERVE_REQUESTS[0][1], tenant="gold",
+                            max_new_tokens=SERVE_LISTEN_TOKENS)
+        seconds = time.perf_counter() - t
+        code, wire = http_json(srv.host, srv.port, "GET", "/v1/metrics")
+        stats = dict(srv.stats)
+    req = lfe.requests[out["rid"]]
+    if out["http_status"] != 200 or out["status"] != "ok" or out["text"] != req.stream.text:
+        raise AssertionError(f"listen ({label}): SSE status {out['http_status']}/{out['status']}, "
+                             f"text equal to the in-process stream: {out['text'] == req.stream.text}")
+    wire_req = next((r for r in wire.get("requests", []) if r["rid"] == req.rid), None) if code == 200 else None
+    if wire_req is None or wire_req["tokens_out"] != req.tokens_out or req.tokens_out < SERVE_LISTEN_TOKENS:
+        raise AssertionError(f"listen ({label}): GET /v1/metrics answered {code} with {wire_req}, "
+                             f"in process {req.tokens_out} tokens")
+    if stats["pump_errors"]:
+        raise AssertionError(f"listen ({label}): the pump failed: {stats}")
+    if label == "reduced" and not out["text"]:
+        raise AssertionError("listen (reduced): the SSE text is empty, nothing was compared")
+    _serving_summary(f"listen-{label}", lfe, seconds, card, sse_events=len(out["events"]),
+                     sse_chars=len(out["text"]), sse_text_equals_stream=True,
+                     wire_tokens_out=wire_req["tokens_out"], transport=stats,
+                     phase_s=time.perf_counter() - t0)
+
+
+def drive_serving(card: str) -> dict:
+    """Phase 5: the serving entry point's classes at full width, mode after
+    mode (each mode's objects are gone before the next one's memory is
+    read). Returns the kernels' launch counts in the cortex-mode serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tm
+
+    cfg, small = get_config("qwen2.5-0.5b"), get_config("qwen2.5-0.5b", reduced=True)
+    params = tm.init_params(cfg, seed=0)
+    prism = Prism(params, cfg)
+    tok = ByteTokenizer(cfg.vocab_size)
+    log(f"serving: {cfg.name} L={cfg.n_layers} d_model={cfg.d_model} vocab={cfg.vocab_size} "
+        f"compute={cfg.compute_dtype} {SERVE}")
+    counts = _cortex_mode(prism, tok, card)
+    for mode in (lambda: _batch_mode(params, cfg, tok, card),
+                 lambda: _listen_mode(prism, card, "full"),
+                 # the full vocabulary's random model rarely emits a byte id,
+                 # so its stream text is mostly empty; the reduced config's
+                 # 512-id vocabulary gives a text to compare
+                 lambda: _listen_mode(Prism(tm.init_params(small, seed=0), small), card, "reduced")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mode()
     return counts
 
 
@@ -403,8 +707,9 @@ def main() -> int:
     recs = check_kernels(dev)
     check_reference(dev)
     counts = drive_main_path(card)
+    serving = drive_serving(card)
 
-    kernels = [dict(recs[name], launches=counts[name]) for name in ops.KERNELS]
+    kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name]) for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)

@@ -1,27 +1,49 @@
 """The Cortex Engine — River & Stream topology on one card.
 
-Port of the JAX package's ``repro.core.engine`` (the serial dispatch→drain
-loop). One Prism (shared weights) drives:
+Port of the JAX package's ``repro.core.engine``. One Prism (shared weights)
+drives:
 
 * the river lanes, decoding over full KV caches;
 * the stream (side) lanes, decoding over landmark-compressed synapse caches
   through the ``synapse_attention`` kernel;
 * per-lane sampling, and small on-device token rings.
 
-A window is ``sync_every`` virtual ticks: a Python loop of ticks whose
-sampled tokens go to the rings, with no host sync inside it (no
+A window is up to ``max_window`` virtual ticks: a Python loop of ticks
+whose sampled tokens go to the rings, with no host sync inside it (no
 ``.item()``, ``.tolist()``, ``.cpu()`` or boolean-mask indexing). Each
 drain copies the rings to the host once, then runs the host-side control
 plane: UTF-8 decoding, the router, spawns and merges.
 
+* PIPELINED DRAINS: ``run(n)`` fetches window *t*'s rings (the one
+  blocking copy per window) and, when a conservative gate on the raw ring
+  bytes proves window *t* carries no router trigger and completes no side,
+  dispatches window *t+1* BEFORE window *t*'s host post-processing. The
+  rings of the window in flight are copied into pinned host memory as soon
+  as it finishes (an event marks the copy), so the next fetch waits only for
+  that copy. A failed gate falls back to the serial order for one window;
+  ``pipeline=False`` keeps the serial loop (``_run_serial``), the parity
+  reference.
+* ADAPTIVE WINDOWS: :class:`AdaptiveWindow` lengthens the window over the
+  ladder ``sync_every × {1, 2, 4, …} ≤ max_window`` while drains stay quiet
+  and snaps back on any trigger, spawn, merge or admission; windows are
+  capped where a side's step budget completes, so control ops land on the
+  same virtual tick as in the pinned engine, and every stream is bitwise the
+  same.
 * Spawn = hybrid landmark compression of the parent lane only (paper §3.3),
   every layer at once through ONE ``landmark_score`` launch;
 * merge = Validation Gate (§3.5) + Referential Injection (§3.6) in one step
   (``injection.merge_thought``).
+* Serving hooks: ``stream_tap(view, chunk, toks)`` fires in the drain
+  post-processing for every lane that received tokens; ``admission_hook``
+  runs in :meth:`CortexEngine._boundary_ops`, at window boundaries with
+  nothing in flight, so a front end's admissions never flush a window.
+  Agents carry identities in an :class:`~repro_torch.memory.AgentRegistry`.
 
 Caches and per-lane state are updated in place where the reference donated
 its buffers. ``stats`` keeps the reference's accounting: a window counts as
 one tick dispatch, each ring fetch and each merge decision as one host sync.
+The memory tiers (hibernate, wake, idle-tick demotion) are not ported yet:
+where the reference would hibernate an agent, the port raises.
 """
 from __future__ import annotations
 
@@ -37,6 +59,7 @@ from repro_torch.core.router import CortexRouter
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ring_append
+from repro_torch.memory import ACTIVE, REGISTERED, AgentRegistry
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -70,7 +93,9 @@ def _compress_stacked(cfg: ModelConfig, c: cache_lib.FullCache, spec: model_lib.
     """[L, B, ...] FullCache -> [L, B, ...] SynapseCache, layers folded into
     the batch axis (one scoring sweep for the whole stack)."""
     L, B = c.pos.shape[:2]
-    flat = cache_lib.map_cache(lambda a: a.reshape((L * B,) + a.shape[2:]), c)
+    # one lane of several rivers is a strided slice: the landmark_score
+    # kernel reads contiguous keys, so the fold copies it where it must
+    flat = cache_lib.map_cache(lambda a: a.reshape((L * B,) + a.shape[2:]).contiguous(), c)
     last = torch.clamp(flat.length.long() - 1, 0, flat.k.shape[1] - 1)
     k_last = flat.k[torch.arange(L * B, device=last.device), last]  # [LB, Hkv, D]
     g = cfg.n_heads // k_last.shape[1]
@@ -89,6 +114,7 @@ class TickState:
     """Everything a tick reads and writes; updated in place."""
 
     gen: torch.Generator    # device generator of the stochastic lanes
+    rings: torch.Tensor     # [M+S, R] int32 — main_ring and side_ring are views of it
     # river lanes
     main_tok: torch.Tensor     # [M] int32 — last token per lane
     main_pos: torch.Tensor     # [M] int32 — next rope position
@@ -118,19 +144,22 @@ def init_tick_state(cfg: ModelConfig, *, n_main: int, max_side: int, main_spec, 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+    # one ring buffer for every lane, at a fixed address: a drain copies it
+    # to the host in one transfer
+    rings = torch.full((M + S, R), -1, dtype=torch.int32, device=device)
     return TickState(
-        gen=gen,
+        gen=gen, rings=rings,
         main_tok=zi(M), main_pos=zi(M),
         main_active=torch.zeros(M, dtype=torch.bool, device=device),
         main_hidden=torch.zeros((M, d), dtype=torch.float32, device=device),
-        main_ring=torch.full((M, R), -1, dtype=torch.int32, device=device),
+        main_ring=rings[:M],
         main_samp=lane_params(main_sampling, M, device=device),
         main_caches=model_lib.init_caches(cfg, M, main_spec, device=device),
         side_tok=zi(S), side_pos=zi(S),
         side_active=torch.zeros(S, dtype=torch.bool, device=device),
         side_step=zi(S), side_plen=zi(S), side_prompt=zi(S, P),
         side_hidden=torch.zeros((S, d), dtype=torch.float32, device=device),
-        side_ring=torch.full((S, R), -1, dtype=torch.int32, device=device),
+        side_ring=rings[M:],
         side_samp=lane_params(side_sampling, S, device=device),
         side_caches=model_lib.init_caches(cfg, S, side_spec, device=device),
     )
@@ -186,6 +215,49 @@ def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec,
     st.side_hidden.copy_(hidden_s.float())
 
 
+# byte values the conservative drain gate inspects on the raw token rings
+# (ByteTokenizer: ids 0..255 are raw bytes; every router tag needs them both)
+_OPEN_BRACKET, _CLOSE_BRACKET = ord("["), ord("]")
+
+# the port has no memory tiers yet: where the reference would hibernate an
+# agent, the port says so instead of doing something else
+_NO_TIERS = ("hibernating agents needs the memory tiers (synapse store, hibernate/wake), "
+             "which the port does not have yet: ROADMAP item 9")
+
+
+class AdaptiveWindow:
+    """Window-length policy: lengthen ``sync_every`` while drains are quiet.
+
+    Proposals come from a fixed ladder ``base * {1, 2, 4, ...}`` capped at
+    ``max_window``. The policy climbs one rung per quiet drain (no router
+    trigger, no spawn, merge or completion, no admission) and snaps back to
+    the base window on any such event. ``max_window == base`` is the pinned
+    policy.
+    """
+
+    def __init__(self, base: int, max_window: int | None = None):
+        self.base = max(1, base)
+        requested = max(self.base, max_window or self.base)
+        # every rung is base * 2^k: the engine's boundary math (side budget
+        # caps, drain alignment with the pinned engine) assumes windows are
+        # base multiples, so an off-ladder max_window rounds DOWN to a rung
+        ladder = [self.base]
+        while ladder[-1] * 2 <= requested:
+            ladder.append(ladder[-1] * 2)
+        self.ladder = tuple(ladder)
+        self.max_window = ladder[-1]
+        self._rung = 0
+
+    def propose(self) -> int:
+        return self.ladder[self._rung]
+
+    def on_quiet_drain(self):
+        self._rung = min(self._rung + 1, len(self.ladder) - 1)
+
+    def on_event(self):
+        self._rung = 0
+
+
 @dataclass
 class AgentView:
     """Host-side bookkeeping for one agent lane (refreshed at drain time)."""
@@ -220,14 +292,26 @@ class CortexEngine:
         side_sampling: SamplingParams | None = None,
         seed: int = 0,
         sync_every: int = 1,
+        max_window: int | None = None,
+        pipeline: bool = True,
         side_prompt_cap: int = 64,
         compute_dtype: str | None = None,
+        hibernate_idle_ticks: int | None = None,
         device=None,
     ):
         """Runs on ``device``, the card unless ``device="cpu"``, which must
         be where the Prism holds the weights. On the CPU the compute dtype
         defaults to f32 (as the reference's CPU serving policy); on the card
-        it is the config's (bf16 for the paper's model)."""
+        it is the config's (bf16 for the paper's model).
+
+        ``max_window`` lets the pipelined ``run`` lengthen windows up to that
+        many ticks while drains are quiet (None pins them at ``sync_every``;
+        off-ladder values round down to ``sync_every * 2^k``).
+        ``pipeline=False`` keeps the serial dispatch → drain loop, whose
+        windows stay pinned. ``hibernate_idle_ticks`` (idle-tick demotion to
+        the memory tiers) is refused: the port has no tiers yet."""
+        if hibernate_idle_ticks is not None:
+            raise NotImplementedError(_NO_TIERS)
         self.device = resolve_device(device)
         if prism.device != self.device:
             raise ValueError(f"the Prism's weights are on {prism.device}, the engine runs on {self.device}")
@@ -246,9 +330,12 @@ class CortexEngine:
         self.side_sampling = side_sampling if side_sampling is not None else sampling
         self.sync_every = max(1, sync_every)
         self.side_prompt_cap = side_prompt_cap
+        self.window = AdaptiveWindow(self.sync_every, max_window if pipeline else None)
+        self.max_window = self.window.max_window
+        self.pipeline = pipeline
         # the router's overlap tail covers the longest round-tripped tag and
         # one drain window of text (8 bytes/token bounds UTF-8 expansion)
-        self.router = CortexRouter(tail=max(256, 8 * self.sync_every, side_prompt_cap + 16))
+        self.router = CortexRouter(tail=max(256, 8 * self.max_window, side_prompt_cap + 16))
         self.main_spec = model_lib.CacheSpec(kind="full", capacity=main_capacity)
         self.side_spec = side_spec or model_lib.CacheSpec(
             kind="synapse", n_landmarks=64, window=64, n_inject=inject_tokens
@@ -256,6 +343,8 @@ class CortexEngine:
         self.n_main, self.max_side = n_main, max_side
         self.mains = [AgentView(f"main{i}", i, "main") for i in range(n_main)]
         self.sides = [AgentView(f"side{i}", i, "side") for i in range(max_side)]
+        self.registry = AgentRegistry()
+        self._agent_seq = 0
         # host mirrors of the per-lane sampling tensors: they pick the
         # sampler's fast path without reading the device
         self._main_sp: list[SamplingParams] = [self.sampling] * n_main
@@ -263,20 +352,37 @@ class CortexEngine:
         # per-agent incremental UTF-8 decoders: a codepoint split across a
         # window boundary never becomes U+FFFD in the agent's text
         self._decoders: dict[str, object] = {}
+        # serving front-end hooks: ``stream_tap(view, chunk, toks)`` fires
+        # in the drain post-processing for every lane that received tokens;
+        # ``admission_hook()`` runs with the window-boundary control plane
+        # (:meth:`_boundary_ops`), never inside a window
+        self.stream_tap = None
+        self.admission_hook = None
         self.history: list[dict] = []
         self.stats = {
             "ticks": 0, "tick_dispatches": 0, "macro_dispatches": 0,
-            "aux_dispatches": 0, "host_syncs": 0, "drains": 0, "window_hist": {},
+            "aux_dispatches": 0, "host_syncs": 0, "drains": 0,
+            # drains whose host post-processing overlapped the next window,
+            # and the dispatched window lengths (window_hist[w] = count)
+            "overlapped_drains": 0, "window_hist": {},
         }
         self._pending = 0  # ticks since last drain (== ring cursor)
         # serving-dtype weights, cast once; the Prism's copy stays the master
         self._params = model_lib.cast_params(prism.params, cfg)
+        # rings hold the longest adaptive window
         self.state = init_tick_state(
             cfg, n_main=n_main, max_side=max_side, main_spec=self.main_spec,
-            side_spec=self.side_spec, ring_capacity=self.sync_every,
+            side_spec=self.side_spec, ring_capacity=self.max_window,
             side_prompt_cap=side_prompt_cap, main_sampling=self.sampling,
             side_sampling=self.side_sampling, seed=seed, device=self.device,
         )
+        # the host side of the ring copy: pinned on the card, so the copy of
+        # the window in flight runs while the host works; an event marks its
+        # end, and the fetch waits for that event only
+        on_card = self.device.type == "cuda"
+        self._ring_host = torch.empty(self.state.rings.shape, dtype=torch.int32, pin_memory=on_card)
+        self._ring_event = torch.cuda.Event() if on_card else None
+        self._prefetched = False
 
     def _sampler_flags(self, step_sides: bool) -> tuple[bool, bool]:
         """(use_filters, any_greedy) over the lanes a tick samples, from the
@@ -292,17 +398,28 @@ class CortexEngine:
             dec = self._decoders[agent_id] = self.tok.stream_decoder()
         return dec
 
+    def agent_text(self, agent_id: str) -> str:
+        """The agent's full text as of the last drain, including what the
+        decoder would flush of a codepoint left incomplete at the window
+        boundary: exactly ``tok.decode(tokens)`` of the same stream. The
+        decoder keeps its state, so the live stream stays bitwise."""
+        for v in (*self.mains, *self.sides):
+            if v.agent_id == agent_id:
+                dec = self._decoders.get(agent_id)
+                return v.text + (dec.tail() if dec is not None else "")
+        raise KeyError(agent_id)
+
     # ------------------------------------------------------------------
-    def submit(self, prompt: str, lane: int = 0, sampling: SamplingParams | None = None):
-        """Start (or restart) the main agent on ``lane`` with ``prompt``:
+    def submit(self, prompt: str, lane: int = 0, sampling: SamplingParams | None = None,
+               agent_id: str | None = None):
+        """Start (or restart) a main agent on ``lane`` with ``prompt``:
         prefill in place into the lane's cache. ``sampling`` overrides the
-        engine default for this lane only. Tags in the prompt spawn at once."""
+        engine default for this lane only. ``agent_id`` names the agent in
+        the registry; omitted, the per-lane identity ``main{lane}`` is used
+        when free. Tags in the prompt spawn at once."""
         self.drain()  # align host mirrors to a window boundary
-        cur = self.mains[lane]
-        if cur.active:  # whoever held the lane loses its context
-            self.prism.release(cur.agent_id)
-            self.router.reset(cur.agent_id)
-            self._decoders.pop(cur.agent_id, None)
+        self.window.on_event()  # admission: back to the base window
+        aid = self._claim_main_identity(lane, agent_id)
         ids = self.tok.encode(prompt, bos=True)
         toks = torch.tensor([ids], dtype=torch.int32, device=self.device)
         st = self.state
@@ -316,18 +433,59 @@ class CortexEngine:
         st.main_hidden[lane] = hidden[0].float()
         st.main_samp.set_lane(lane, *lane_values(self._main_sp[lane]))
         self.stats["aux_dispatches"] += 2
-        m = AgentView(f"main{lane}", lane, "main")
+        m = AgentView(aid, lane, "main")
         self.mains[lane] = m
         m.text, m.tokens = prompt, list(ids)
         m.position, m.active, m.steps = len(ids), True, 0
         m.prompt_len = len(ids)
-        self._decoders[m.agent_id] = self.tok.stream_decoder()
+        self._decoders[aid] = self.tok.stream_decoder()
         self.prism.acquire(m.agent_id)
+        rec = self.registry.bind(aid, lane)
+        rec.bound_tick = self.stats["ticks"]
         self.router.reset(m.agent_id)
         for tr in self.router.feed(m.agent_id, prompt):
             if tr.kind == "task":
                 self._spawn_side(m, tr.payload)
         return m
+
+    def _claim_main_identity(self, lane: int, agent_id: str | None) -> str:
+        """The agent_id a main-lane submit binds; the lane's previous
+        occupant loses its context and its registry binding."""
+        cur = self.mains[lane]
+        if cur.active:
+            self.prism.release(cur.agent_id)
+            self.registry.release(cur.agent_id)
+            self.router.reset(cur.agent_id)
+            self._decoders.pop(cur.agent_id, None)
+        if agent_id is None:
+            agent_id = f"main{lane}"
+            if agent_id in self.registry:
+                rec = self.registry.get(agent_id)
+                if rec.status == ACTIVE and rec.lane != lane:
+                    # the per-lane identity is alive in another lane: mint
+                    # a fresh one instead of clobbering it
+                    agent_id = f"main{lane}.{self._agent_seq}"
+                    self._agent_seq += 1
+        elif agent_id in self.registry:
+            rec = self.registry.get(agent_id)
+            if rec.status == ACTIVE and rec.lane != lane:
+                raise ValueError(f"agent {agent_id!r} is already active on lane {rec.lane}")
+        self.registry.register(agent_id, "main")
+        return agent_id
+
+    def submit_agent(self, prompt: str, agent_id: str | None = None,
+                     sampling: SamplingParams | None = None):
+        """Lane-less submit: place a (new or registered) agent on a free
+        main lane. With every river lane taken the reference hibernates the
+        least recently touched resident; the port has no memory tiers yet
+        and raises instead."""
+        lane = self._free_main_lane()
+        if lane < 0:
+            raise NotImplementedError(f"no free main lane: {_NO_TIERS}")
+        if agent_id is None:
+            agent_id = f"agent{self._agent_seq}"
+            self._agent_seq += 1
+        return self.submit(prompt, lane=lane, sampling=sampling, agent_id=agent_id)
 
     # ------------------------------------------------------------------
     def _any_active(self) -> bool:
@@ -355,9 +513,9 @@ class CortexEngine:
         self.drain()
 
     def _dispatch_window(self, n: int):
-        """Advance ``n <= sync_every - pending`` virtual ticks. No drain, no
+        """Advance ``n <= max_window - pending`` virtual ticks. No drain, no
         host sync — callers close the window."""
-        assert self._pending + n <= self.sync_every
+        assert self._pending + n <= self.max_window
         step_sides = any(s.active for s in self.sides)
         use_filters, any_greedy = self._sampler_flags(step_sides)
         for i in range(n):
@@ -374,11 +532,131 @@ class CortexEngine:
         hist[n] = hist.get(n, 0) + 1
         self._pending += n
 
+    def _next_window(self, remaining: int, pending=None) -> int:
+        """Length of the next window: the adaptive proposal, capped (a) at
+        the serial-path boundary where an active side's step budget
+        completes (a multiple of the base window, so the merge lands on the
+        pinned engine's virtual tick) and (b) to the base window while the
+        router's retained tail of any agent holds an unclosed ``[``. Every
+        cap keeps the window a base multiple except the run's trailing
+        partial window (``remaining``).
+
+        ``pending=(rings, n)``: window *t* was fetched but not yet
+        post-processed (the overlapped branch), so the side views' tokens and
+        steps are one window stale; the budget cap counts window *t*'s ring
+        tokens, or the boundary lands a window late and the merge drifts
+        off the serial tick."""
+        base = self.sync_every
+        w = self.window.propose()
+        if w > base:
+            for s in self.sides:
+                if not s.active:
+                    continue
+                generated = len(s.tokens) - s.prompt_len
+                steps = s.steps
+                if pending is not None:
+                    rings, p_n = pending
+                    toks = rings[1][s.lane, :p_n]
+                    generated += int((toks >= 0).sum())
+                    steps += p_n
+                forced_left = max(0, (s.prompt_len - 1) - steps)
+                t_budget = forced_left + max(1, self.side_max_steps - generated)
+                boundary = base * -(-t_budget // base)  # ceil to a base multiple
+                w = min(w, boundary)
+            if any(self.router.plausible(a.agent_id) for a in (*self.mains, *self.sides) if a.active):
+                w = base
+        return min(w, remaining)
+
+    def _gate(self, rings, n: int) -> bool:
+        """May window ``t+1`` be dispatched before window ``t``'s host
+        post-processing? Only when that post-processing provably issues no
+        control op. Byte-level, on the fetched rings: a ``[`` could open a
+        tag; a ``]`` closes one only while the router tail holds an unclosed
+        ``[``; a side reaching its step budget merges. Every trigger needs
+        those bytes and budgets are host arithmetic, so a True verdict keeps
+        the serial drain order's result bitwise."""
+        main_ring, side_ring = rings
+        for m in self.mains:
+            if not m.active:
+                continue
+            toks = main_ring[m.lane, :n]
+            toks = toks[toks >= 0]
+            if (toks == _OPEN_BRACKET).any():
+                return False
+            if (toks == _CLOSE_BRACKET).any() and self.router.plausible(m.agent_id):
+                return False
+        for s in self.sides:
+            if not s.active:
+                continue
+            toks = side_ring[s.lane, :n]
+            toks = toks[toks >= 0]
+            if (toks == _OPEN_BRACKET).any():
+                return False
+            if (toks == _CLOSE_BRACKET).any() and self.router.plausible(s.agent_id):
+                return False
+            if len(s.tokens) - s.prompt_len + toks.size >= self.side_max_steps:
+                return False
+        return True
+
     def run(self, n_ticks: int):
-        """Advance ``n_ticks`` virtual ticks in ``ceil(n_ticks/sync_every)``
-        windows: the serial dispatch → drain → dispatch loop."""
+        """Advance ``n_ticks`` virtual ticks in at most
+        ``ceil(n_ticks/sync_every)`` windows (exactly that many with a
+        pinned window).
+
+        Pipelined (default): after fetching window *t*'s rings, the one
+        blocking sync per window, :meth:`_gate` decides whether window *t+1*
+        is dispatched before window *t*'s host post-processing.
+        ``pipeline=False`` runs the serial loop (the parity reference)."""
+        if not self.pipeline:
+            return self._run_serial(n_ticks)
+        remaining = n_ticks
+        # close a partly filled window (tick() interleavings) as the serial
+        # path would before entering the pipeline at a boundary
+        while 0 < remaining and self._pending and self._any_active():
+            w = min(self.sync_every - self._pending, remaining)
+            self._dispatch_window(w)
+            remaining -= w
+            if self._pending >= self.sync_every:
+                self.drain()
+        if self._pending:
+            self.drain()
+
+        inflight = 0  # virtual ticks of the window on the device
+        while remaining or inflight:
+            if not inflight:
+                # window boundary, nothing in flight: admissions land here
+                self._boundary_ops()
+                if not self._any_active():
+                    self.stats["ticks"] += remaining
+                    return
+                inflight = self._next_window(remaining)
+                self._dispatch_window(inflight)
+                self._prefetch_rings()
+                remaining -= inflight
+                continue
+            rings, nwin = self._fetch_rings(), inflight
+            inflight = 0
+            if remaining and self._any_active() and self._gate(rings, nwin):
+                # overlap: the device runs window t+1 while the host does
+                # window t's decoding and router work (control-free by the
+                # gate); the window policy counts window t's ring tokens
+                inflight = self._next_window(remaining, pending=(rings, nwin))
+                self._dispatch_window(inflight)
+                self._prefetch_rings()
+                remaining -= inflight
+                self._postprocess(rings, nwin, overlapped=True)
+                self.stats["overlapped_drains"] += 1
+            else:
+                self._postprocess(rings, nwin)
+        self._boundary_ops()
+
+    def _run_serial(self, n_ticks: int):
+        """The serial loop: dispatch → drain → dispatch, pinned
+        ``sync_every`` windows. The bitwise parity reference."""
         remaining = n_ticks
         while remaining > 0:
+            if self._pending == 0:
+                self._boundary_ops()
             if not self._any_active():
                 self.stats["ticks"] += remaining
                 break
@@ -392,6 +670,15 @@ class CortexEngine:
             if self._pending >= self.sync_every:
                 self.drain()
         self.drain()
+        self._boundary_ops()
+
+    def _boundary_ops(self) -> int:
+        """Window-boundary control plane, run with nothing in flight: the
+        front end's admission hook (retire finished request lanes, admit
+        queued ones). Returns whether the hook did anything."""
+        if self.admission_hook is not None:
+            return int(bool(self.admission_hook()))
+        return 0
 
     # ------------------------------------------------------------------
     def drain(self):
@@ -402,19 +689,41 @@ class CortexEngine:
             return
         self._postprocess(self._fetch_rings(), n)
 
+    def _prefetch_rings(self):
+        """Enqueue the copy of the rings into pinned host memory behind the
+        window just dispatched, and mark its end with an event: the fetch
+        that follows the overlapped host work waits only for the rest of
+        that window. Issued only where a fetch follows (the pipelined run);
+        no device value is read."""
+        self._ring_host.copy_(self.state.rings, non_blocking=True)
+        if self._ring_event is not None:
+            self._ring_event.record()
+        self._prefetched = True
+
     def _fetch_rings(self):
-        st = self.state
-        rings = torch.cat([st.main_ring, st.side_ring]).cpu().numpy()
+        """The pipeline's sync point: the rings on the host (ONE blocking
+        transfer, or the wait for the prefetched one), as a host copy the
+        next window's prefetch cannot overwrite. Resets the ring cursor."""
+        if self._prefetched:
+            if self._ring_event is not None:
+                self._ring_event.synchronize()
+        else:
+            self._ring_host.copy_(self.state.rings)
+        self._prefetched = False
+        rings = self._ring_host.numpy().copy()
         self.stats["host_syncs"] += 1
         self._pending = 0
         return rings[: self.n_main], rings[self.n_main:]
 
-    def _postprocess(self, rings, n: int):
-        """The window's host-side control plane over the fetched rings:
+    def _postprocess(self, rings, n: int, *, overlapped: bool = False):
+        """Window ``t``'s host-side control plane over the fetched rings:
         decode text, feed the router, complete/merge sides, spawn the
-        rivers' tasks."""
+        rivers' tasks, then the window policy. With ``overlapped=True`` the
+        next window is already on the device, so any control op here would
+        be a gate violation (asserted; the gate makes it unreachable)."""
         main_ring, side_ring = rings
         self.stats["drains"] += 1
+        quiet = True
 
         # 1. rivers: append the window's tokens (incremental UTF-8 decode)
         main_chunks: dict[int, str] = {}
@@ -428,6 +737,8 @@ class CortexEngine:
             m.position += len(toks)
             m.steps += len(toks)
             main_chunks[m.lane] = chunk
+            if self.stream_tap is not None and toks:
+                self.stream_tap(m, chunk, toks)
 
         # 2. streams: append, detect completion (trigger or step budget)
         finished = []
@@ -442,7 +753,11 @@ class CortexEngine:
             s.tokens.extend(raw)
             chunk = self._decoder(s.agent_id).feed(raw)
             s.text += chunk
-            trig = [t for t in self.router.feed(s.agent_id, chunk) if t.kind in ("done", "answer")]
+            if self.stream_tap is not None and raw:
+                self.stream_tap(s, chunk, raw)
+            all_trig = self.router.feed(s.agent_id, chunk)
+            quiet = quiet and not all_trig
+            trig = [t for t in all_trig if t.kind in ("done", "answer")]
             generated = len(s.tokens) - s.prompt_len
             if trig or generated >= self.side_max_steps:
                 # end of stream: flush so s.text equals the one-shot decode
@@ -459,16 +774,27 @@ class CortexEngine:
                 finished.append((s, thought))
 
         # 3. merges (free lanes before new spawns claim them)
+        assert not (overlapped and finished), "pipeline gate violated: merge"
         for s, thought in finished:
             self._merge_side(s, thought)
+        quiet = quiet and not finished
 
         # 4. river triggers spawn new streams
         for m in self.mains:
             if not m.active or m.lane not in main_chunks:
                 continue
             for tr in self.router.feed(m.agent_id, main_chunks[m.lane]):
+                quiet = False
+                assert not overlapped, "pipeline gate violated: trigger"
                 if tr.kind == "task":
                     self._spawn_side(m, tr.payload)
+
+        # 5. window policy: quiet drains earn longer windows, any control
+        # event snaps back to the base window
+        if quiet:
+            self.window.on_quiet_drain()
+        else:
+            self.window.on_event()
 
     # ------------------------------------------------------------------
     def _free_side_lane(self) -> int:
@@ -476,6 +802,16 @@ class CortexEngine:
             if not s.active:
                 return s.lane
         return -1
+
+    def _free_main_lane(self) -> int:
+        for m in self.mains:
+            if not m.active:
+                return m.lane
+        return -1
+
+    def _lanes_with_children(self) -> set[int]:
+        """Main lanes some live side stream will merge into."""
+        return {s.parent_lane for s in self.sides if s.active}
 
     def _spawn_lane(self, parent_lane: int, side_lane: int):
         """Compress ONE parent lane into ONE side lane, in place."""
@@ -513,6 +849,11 @@ class CortexEngine:
         st.side_samp.set_lane(lane, *lane_values(self._side_sp[lane]))
         self.stats["aux_dispatches"] += 2
         s = self.sides[lane]
+        if s.agent_id in self.registry and self.registry.get(s.agent_id).status != REGISTERED:
+            # the per-lane identity is still bound elsewhere: mint a fresh one
+            s = AgentView(f"side{lane}.{self._agent_seq}", lane, "side")
+            self._agent_seq += 1
+            self.sides[lane] = s
         s.task, s.text = task, ""
         self._decoders[s.agent_id] = self.tok.stream_decoder()
         s.parent_lane = parent.lane
@@ -521,6 +862,9 @@ class CortexEngine:
         s.active, s.steps = True, 0
         s.prompt_len = len(ids)
         self.prism.acquire(s.agent_id)
+        self.registry.register(s.agent_id, "side")
+        rec = self.registry.bind(s.agent_id, lane)
+        rec.bound_tick = self.stats["ticks"]
         self.history.append(
             {"event": "spawn", "agent": s.agent_id, "task": task, "task_truncated": truncated}
         )
@@ -533,28 +877,33 @@ class CortexEngine:
         if not s.active:
             return
         self.drain()
+        self.window.on_event()  # composition change: back to the base window
         self.state.side_active[lane] = False
         self.stats["aux_dispatches"] += 1
         self.router.reset(s.agent_id)
         self.prism.release(s.agent_id)
+        self.registry.release(s.agent_id)
         self._decoders.pop(s.agent_id, None)
         s.active = False
         self.history.append({"event": "retire", "agent": s.agent_id})
 
     def retire_main(self, lane: int):
-        """Retire a river lane without replacing it; refused while side
+        """Retire a river lane without replacing it (the serving front end
+        frees a finished request's lane this way); refused while side
         streams still target the lane for their merge."""
         m = self.mains[lane]
         if not m.active:
             return
-        if any(s.active and s.parent_lane == lane for s in self.sides):
+        if lane in self._lanes_with_children():
             raise ValueError(f"cannot retire main lane {lane}: side streams still target it for their merge")
         self.drain()
+        self.window.on_event()  # composition change: back to the base window
         self.state.main_active[lane] = False
         self.stats["aux_dispatches"] += 1
         m.text += self._decoder(m.agent_id).flush()  # final text == decode(tokens)
         self.router.reset(m.agent_id)
         self.prism.release(m.agent_id)
+        self.registry.release(m.agent_id)
         self._decoders.pop(m.agent_id, None)
         m.active = False
         self.history.append({"event": "retire", "agent": m.agent_id})
@@ -584,6 +933,7 @@ class CortexEngine:
         })
         self.router.reset(s.agent_id)
         self.prism.release(s.agent_id)
+        self.registry.release(s.agent_id)
         self._decoders.pop(s.agent_id, None)
         s.active = False
 
@@ -599,6 +949,7 @@ class CortexEngine:
             if s.active:
                 per_agent[s.agent_id] = tree_bytes(_lane_slice(self.state.side_caches, s.lane))
         rep = self.prism.memory_report(per_agent)
+        rep["agents"] = self.registry.counts()
         rep["per_agent_bytes"] = dict(per_agent)
         # the serving-dtype cast is a real resident copy where the compute
         # dtype differs from the parameter dtype (shared leaves cost 0)

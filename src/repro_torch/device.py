@@ -21,3 +21,14 @@ def resolve_device(device=None) -> torch.device:
 def torch_dtype(name: str) -> torch.dtype:
     """Config dtype string ("float32", "bfloat16", ...) -> torch dtype."""
     return getattr(torch, name)
+
+
+def to_device(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host values (a list or numpy array) as a new tensor on ``device``.
+    On the card the copy goes through pinned memory and is only enqueued:
+    the host does not wait for the stream, so no device work already in
+    flight is waited for (a plain host-to-card copy would)."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

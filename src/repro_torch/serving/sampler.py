@@ -1,9 +1,13 @@
-"""Per-lane token sampling: greedy / temperature / top-k / top-p.
+"""Token sampling: greedy / temperature / top-k / top-p.
 
-Port of the JAX package's ``repro.serving.sampler`` (the per-lane path the
-engine uses). Per-lane parameters are stacked device tensors
-(:class:`LaneSampling`), so a greedy river and exploratory side lanes share
-one sampling pass. Lanes with ``temperature <= 0`` take the exact
+Port of the JAX package's ``repro.serving.sampler``. Two entry points:
+
+* :func:`sample` — one :class:`SamplingParams` for the whole batch;
+* :func:`sample_lanes` — per-lane parameters stacked as device tensors
+  (:class:`LaneSampling`), so a greedy river and exploratory side lanes
+  share one sampling pass (the engine's tick and the BatchServer's step,
+  whose stacked parameters a :class:`SampCache` keeps).
+ Lanes with ``temperature <= 0`` take the exact
 ``argmax`` of their logits, independent of the generator and of every
 other lane. Stochastic lanes draw from a device ``torch.Generator`` by the
 Gumbel-max trick; the reference's JAX key chain cannot be replayed, so only
@@ -15,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.kernels.ops import NEG_INF
 
 
@@ -59,12 +64,52 @@ def lane_params(params: SamplingParams, n: int, *, device) -> LaneSampling:
     )
 
 
+def stack_lane_params(params_list, *, device) -> LaneSampling:
+    """Stack a list of SamplingParams (one per lane) into a LaneSampling."""
+    vals = [lane_values(p) for p in params_list]
+    return LaneSampling(
+        temperature=to_device([v[0] for v in vals], torch.float32, device),
+        top_k=to_device([v[1] for v in vals], torch.int32, device),
+        top_p=to_device([v[2] for v in vals], torch.float32, device),
+    )
+
+
 def cat_lanes(*parts: LaneSampling) -> LaneSampling:
     return LaneSampling(
         temperature=torch.cat([p.temperature for p in parts]),
         top_k=torch.cat([p.top_k for p in parts]),
         top_p=torch.cat([p.top_p for p in parts]),
     )
+
+
+class SampCache:
+    """Memoised (stacked LaneSampling, use_filters, any_greedy) for a lane
+    composition, with an explicit invalidation hook.
+
+    Serving loops rebuild the stacked per-lane tensors only when the lane
+    composition changes. Admission, completion and mid-flight retirement
+    must ALL call :meth:`invalidate`: a stale cache would hand a recycled
+    lane the previous request's sampling parameters (and, through the fast
+    path flags, could pin the whole batch to the wrong sampler branch)."""
+
+    def __init__(self, device):
+        self.device = device
+        self._val = None
+
+    @property
+    def valid(self) -> bool:
+        return self._val is not None
+
+    def invalidate(self):
+        self._val = None
+
+    def get(self, lane_params):
+        """``lane_params``: zero-argument callable returning the per-lane
+        SamplingParams list; only consulted on a miss."""
+        if self._val is None:
+            ps = list(lane_params())
+            self._val = (stack_lane_params(ps, device=self.device), *static_flags(ps))
+        return self._val
 
 
 def static_flags(params_iterable) -> tuple[bool, bool]:
@@ -81,6 +126,25 @@ def _gumbel_argmax(gen: torch.Generator, logits):
     u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=torch.float32)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+
+
+def sample(gen: torch.Generator, logits, params: SamplingParams):
+    """logits [B, V] -> tokens [B] int32 under one SamplingParams; every
+    branch is picked on the host from ``params``."""
+    if params.greedy or params.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if params.temperature != 1.0:
+        logits = logits / max(params.temperature, 1e-6)
+    if params.top_k > 0:
+        kth = torch.topk(logits, params.top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, -torch.inf), logits)
+    if params.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = torch.sum(cum < params.top_p, dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = torch.where(logits < cutoff, torch.full_like(logits, -torch.inf), logits)
+    return _gumbel_argmax(gen, logits).to(torch.int32)
 
 
 def sample_lanes(gen: torch.Generator, logits, lanes: LaneSampling, *, use_filters: bool = True,

@@ -7,6 +7,9 @@ tests). Run them on the card with
 (``--noconftest``: the shared conftest imports JAX, which a card's host
 need not have).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -142,3 +145,90 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         ls.landmark_score(torch.zeros((1, 1024, 64), device=card), torch.zeros((1, 8, 2, 64), device=card))
     with pytest.raises(ValueError, match="multiple"):
         ls.landmark_score(torch.zeros((1, 5, 64), device=card), torch.zeros((1, 8, 2, 64), device=card))
+
+
+# ---------------------------------------------------------------------------
+# the serving path on the card: no host sync inside a window, and the
+# BatchServer's speculative pipeline equal to its serial loop
+# ---------------------------------------------------------------------------
+def _smoke():
+    """``chip_smoke.py``, whose sync guards these tests share."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _reduced(card):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+
+    cfg = dataclasses.replace(get_config("qwen2.5-0.5b", reduced=True), compute_dtype="float32")
+    return cfg, tmodel.init_params(cfg, seed=0, device=card)
+
+
+def test_pipelined_window_makes_no_host_sync(card):
+    """Every window's dispatch and ring prefetch, and every overlapped
+    post-processing, run under set_sync_debug_mode("error"); the streams
+    equal the serial loop's."""
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.sampler import SamplingParams
+
+    ops.build_kernels()
+    cfg, params = _reduced(card)
+    runs = {}
+    for pipeline in (False, True):
+        eng = CortexEngine(Prism(params, cfg, device=card), ByteTokenizer(cfg.vocab_size), n_main=2,
+                           max_side=2, main_capacity=128, inject_tokens=8, theta=-1.0, side_max_steps=12,
+                           sampling=SamplingParams(greedy=True), sync_every=4, max_window=16,
+                           pipeline=pipeline, device=card)
+        if pipeline:
+            _smoke().guard_window_no_sync(eng)
+        eng.submit("calm words [TASK: look closer] more calm words", lane=0)
+        eng.submit("a second calm river", lane=1)
+        eng.run(96)
+        runs[pipeline] = eng
+    piped, serial = runs[True], runs[False]
+    assert piped.stats["overlapped_drains"] > 0 and max(piped.stats["window_hist"]) > 4
+    assert any(e["event"] == "merge" for e in piped.history)
+    for a, b in zip(piped.mains + piped.sides, serial.mains + serial.sides):
+        assert a.tokens == b.tokens
+    assert [e["event"] for e in piped.history] == [e["event"] for e in serial.history]
+
+
+def test_batchserver_pipeline_equals_serial_on_card(card):
+    """Through a surprise-EOS rollback (the EOS id is set to a token the
+    model emits greedily); each step, and each undo record, without a host
+    sync."""
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving import server as tserver
+    from repro_torch.serving.sampler import SamplingParams
+
+    cfg, params = _reduced(card)
+    tok = ByteTokenizer(cfg.vocab_size)
+    probe = tserver.BatchServer(params, cfg, tok, n_lanes=2, capacity=64,
+                                sampling=SamplingParams(greedy=True), device=card)
+    probe.submit("probe the stream", max_new_tokens=12)
+    done = probe.run_until_done(pipeline=False)
+    tok.eos_id = done[0].tokens[done[0].prompt_len + 3]
+    outs, stats = [], []
+    for pipeline in (True, False):
+        srv = tserver.BatchServer(params, cfg, tok, n_lanes=2, capacity=64,
+                                  sampling=SamplingParams(temperature=1.0), seed=7, device=card)
+        srv._step = _smoke().no_sync(srv._step)
+        for prompt, n, sp in [("first request", 6, SamplingParams(greedy=True)),
+                              ("second request", 9, SamplingParams(temperature=0.9, top_k=8)),
+                              ("probe the stream", 12, SamplingParams(greedy=True)),
+                              ("probe the stream", 40, SamplingParams(greedy=True))]:
+            srv.submit(prompt, max_new_tokens=n, sampling=sp)
+        outs.append(sorted((r.rid, tuple(r.tokens), r.status) for r in srv.run_until_done(pipeline=pipeline)))
+        stats.append(dict(srv.stats))
+    assert outs[0] == outs[1] and len(outs[0]) == 4
+    assert stats[0]["rollbacks"] >= 1 and stats[0]["overlapped"] > 0
+    assert stats[0]["steps"] == stats[1]["steps"]

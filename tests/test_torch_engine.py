@@ -66,7 +66,7 @@ def port(weights):
     that lands in a ring (active rivers, sides past their forced prompt)."""
     _, _, cfg, params = weights
     eng = CortexEngine(Prism(params, cfg, device="cpu"), ByteTokenizer(cfg.vocab_size),
-                       sampling=SamplingParams(greedy=True), device="cpu", **KW)
+                       sampling=SamplingParams(greedy=True), pipeline=False, device="cpu", **KW)
     margins = []
     real = tengine.sample_lanes
 

@@ -27,7 +27,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert {"repro_torch.bridge", "repro_torch.core.engine", "repro_torch.kernels.ops"} <= set(mods)
+    assert {"repro_torch.bridge", "repro_torch.core.engine", "repro_torch.kernels.ops",
+            "repro_torch.memory.registry", "repro_torch.serving.server", "repro_torch.serving.frontend",
+            "repro_torch.serving.transport", "repro_torch.launch.serve"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -60,6 +62,27 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         CortexEngine(prism, ByteTokenizer(cfg.vocab_size), max_side=1, main_capacity=32)
     eng = CortexEngine(prism, ByteTokenizer(cfg.vocab_size), max_side=1, main_capacity=32, device="cpu")
     assert eng.device.type == "cpu" and eng.cfg.compute_dtype == "float32"
+
+
+def test_serving_entry_points_raise_without_a_card(monkeypatch, capsys):
+    """BatchServer and the launcher need the card unless asked for the CPU;
+    asked, the launcher serves its requests there and returns the metrics."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.server import BatchServer
+
+    _no_card(monkeypatch)
+    cfg = get_config("qwen2.5-0.5b", reduced=True)
+    params = tmodel.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchServer(params, cfg, ByteTokenizer(cfg.vocab_size), n_lanes=1, capacity=32)
+    srv = BatchServer(params, cfg, ByteTokenizer(cfg.vocab_size), n_lanes=1, capacity=32, device="cpu")
+    assert srv.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--mode", "batch"])
+    m = serve.main(["--mode", "batch", "--device", "cpu", "--max-new-tokens", "4", "--no-stream",
+                    "--request", "t:0:hello"])
+    assert m["completed"] == 1 and m["backend"] == "batch"
+    assert "serving on cpu: 1 completed" in capsys.readouterr().out
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
