@@ -42,7 +42,26 @@ Phases, each failing the run on its own failure:
    reduced config the SSE text, not empty, must equal the in-process
    stream's. Each mode prints its TTFT and tick percentiles, tokens/s,
    memory and seconds.
-6. Print the ``kernels`` JSON line, the card's name and power limit, and
+6. The memory tiers at full width: the pipelined engine of phase 5 with a
+   ``SynapseStore`` whose warm tier holds less than one river snapshot and
+   whose cold tier is a directory under ``build/``. River alice's two tags
+   spawn two sides; river bob has none. After 32 ticks both sides
+   (mid-decode) and bob hibernate and go cold; device memory holds none of
+   their bytes and each bf16 snapshot's cold round trip is bitwise. Woken at
+   once, every stream, spawn and merge (gate scores included) equals a
+   never-hibernated run's. Woken after 16 ticks while ``run`` goes on (the
+   sides into each other's lanes; every window dispatched while a prefetch
+   is in flight and each commit under ``set_sync_debug_mode("error")``), the
+   side streams, the merges' agents, thoughts and acceptance, bob's stream
+   and alice's up to the reference's merge equal that run's, and the
+   kernels launched once per spawn and once per layer and side tick. Then a
+   kill and restart (bob warm, woken, hibernated and demoted; a new store
+   recovers the directory and a new engine adopts and wakes him: his stream
+   goes on as the reference's), and ``python -m repro_torch.launch.serve``
+   in process with ``--cold-dir`` and then ``--cold-dir --recover`` over a
+   dead process's agent (reduced config). Prints the snapshot and blob
+   bytes, the codec, hibernate and wake-to-commit times.
+7. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
@@ -685,6 +704,362 @@ def drive_serving(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+TIER_ALICE = ("The river keeps its own counsel while it works. [TASK: weigh the evidence] "
+              "[TASK: check the numbers] It goes on thinking aloud.")
+TIER_BOB = "A second river with nothing to delegate, thinking on its own."
+TIER_SIDES = ("side1", "side0")  # woken in this order, each lands in the other's lane
+TIER_WARM_BYTES = 4 << 20  # below one river snapshot (~12.8 MB): the hibernated agents go cold
+
+
+class _TierProbe:
+    """Counts the side ticks of every window the engine dispatches and
+    stamps each dispatch with its length and the host clock; stamps each
+    wake commit with the host clock and the time its ticket became ready
+    (the prefetch worker's read, decode and enqueued copies done)."""
+
+    def __init__(self, eng):
+        self.side_ticks, self.commits, self.ready, self.dispatches = 0, {}, {}, []
+        dispatch, commit = eng._dispatch_window, eng._commit_wake
+
+        def counted(n):
+            self.side_ticks += n if any(s.active for s in eng.sides) else 0
+            self.dispatches.append((time.perf_counter(), n))
+            dispatch(n)
+
+        def stamped(aid, ticket, **kw):
+            landed = commit(aid, ticket, **kw)
+            if landed:
+                self.commits[aid] = time.perf_counter()
+                self.ready[aid] = ticket.resolved_at
+            return landed
+        eng._dispatch_window, eng._commit_wake = counted, stamped
+
+    def wake_split(self, aid: str, woken_at: float) -> dict:
+        """Wake-to-commit of ``aid``, split into the prefetch (wake to
+        ticket ready) and the boundary wait (ready to commit), with the
+        lengths of the windows dispatched between the wake and the commit."""
+        ready, commit = self.ready[aid], self.commits[aid]
+        return {"wake_to_commit_ms": (commit - woken_at) * 1e3, "prefetch_ms": (ready - woken_at) * 1e3,
+                "boundary_wait_ms": (commit - ready) * 1e3,
+                "windows_in_between": [n for t, n in self.dispatches if woken_at <= t <= commit]}
+
+
+def _tier_engine(prism, tok, store=None):
+    """Phase 6's engine: the serving settings, pipelined, greedy."""
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.serving.sampler import SamplingParams
+
+    return CortexEngine(prism, tok, sampling=SamplingParams(greedy=True), store=store, **SERVE)
+
+
+def _tier_run(prism, tok, mode: str, store=None) -> dict:
+    """The phase's schedule. Both rivers (alice's tags spawn two sides), 32
+    ticks; ``mode`` "immediate" and "delayed" then hibernate both sides
+    mid-decode and bob; "immediate" wakes them at once (``wait=True``);
+    16 ticks; "delayed" wakes them now, without waiting, so they land while
+    ``run`` goes on, with every window dispatched while a prefetch is in
+    flight and each wake's commit under ``set_sync_debug_mode("error")``;
+    then 64 ticks, until both sides merge, and 32 more. "never" runs the
+    same calls without hibernating. Returns the agents' tokens, the spawn
+    and merge records and the measurements."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import ops
+    from repro_torch.memory import store as tstore
+
+    eng = _tier_engine(prism, tok, store)
+    probe = _TierProbe(eng)
+    at_merge = []
+    merge = eng._merge_side
+    eng._merge_side = lambda s, thought: (at_merge.append(len(eng.mains[0].tokens)), merge(s, thought))[1]
+    ops.reset_launches()
+    eng.submit(TIER_ALICE, lane=0, agent_id="alice")
+    eng.submit(TIER_BOB, lane=1, agent_id="bob")
+    if [e["agent"] for e in eng.history if e["event"] == "spawn"] != ["side0", "side1"]:
+        raise AssertionError(f"tiers: expected two spawns, history={eng.history}")
+    eng.run(32)
+    out = {}
+    parked = (*TIER_SIDES, "bob")
+    if mode != "never":
+        views = {v.agent_id: v for v in eng.mains + eng.sides}
+        if any(len(views[s].tokens) <= views[s].prompt_len for s in TIER_SIDES):
+            raise AssertionError("tiers: a side is not decoding yet at tick 32")
+        eng.drain()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        kept = {aid: ckpt_io.tree_map(lambda t: t.cpu(), eng._gather_side_lane(views[aid].lane) if aid != "bob"
+                                      else eng._gather_main_lane(1)) for aid in parked}
+        hib_ms = {}
+        for aid in parked:
+            t = time.perf_counter()
+            eng.hibernate(aid)
+            hib_ms[aid] = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        rep = eng.memory_report()
+        if after > before or any(aid in rep["per_agent_bytes"] for aid in parked):
+            raise AssertionError(f"tiers: hibernated agents still hold device bytes ({before} -> {after} "
+                                 f"allocated, per agent {rep['per_agent_bytes']})")
+        if any(eng.store.tier_of(aid) != "cold" for aid in parked):
+            raise AssertionError(f"tiers: not all cold: {[eng.store.tier_of(a) for a in parked]}")
+        for aid in parked:  # the bf16 snapshot's cold round trip is bitwise
+            got = eng.store.get_host(aid)
+            la, lb = ckpt_io.tree_flatten_with_path(got), ckpt_io.tree_flatten_with_path(kept[aid])
+            if [p for p, _ in la] != [p for p, _ in lb] or any(
+                    x.dtype != y.dtype or ckpt_io.leaf_bytes(x) != ckpt_io.leaf_bytes(y)
+                    for (_, x), (_, y) in zip(la, lb)):
+                raise AssertionError(f"tiers: {aid}'s cold snapshot differs from its lane's bytes")
+        blobs = {aid: eng.store._cold[aid] for aid in parked}
+        out.update(
+            memory_allocated_before_after=[before, after], hibernate_ms=hib_ms, tiers=rep["tiers"],
+            snapshot_bytes={aid: tstore.tree_bytes(kept[aid]) for aid in ("side0", "bob")},
+            cold_blob_bytes={aid: e.comp_bytes for aid, e in blobs.items()},
+            codec=sorted({ckpt_io.codec_name(ckpt_io.parse_frame_header(open(e.path, "rb").read())["codec"])
+                          for e in blobs.values()}))
+        del kept
+    woken_at, guarded = {}, [0]
+    if mode == "immediate":
+        for aid in parked:
+            eng.wake(aid, wait=True)
+    eng.run(16)
+    if mode == "delayed":
+        guard_window_no_sync(eng)
+        eng._commit_wake = no_sync(eng._commit_wake, guarded)
+        for aid in parked:
+            woken_at[aid] = time.perf_counter()
+            eng.wake(aid)
+    eng.run(64)
+    for _ in range(64):
+        if sum(e["event"] == "merge" for e in eng.history) == 2:
+            break
+        eng.run(eng.sync_every)
+    else:
+        raise AssertionError(f"tiers ({mode}): the sides did not merge: {eng.history}")
+    eng.run(32)
+    wakes = {e["agent"]: e["lane"] for e in eng.history if e["event"] == "wake"}
+    if mode != "never":
+        if eng.stats["wakes"] != 3 or eng.stats["wake_failures"] or eng.stats["lost_agents"]:
+            raise AssertionError(f"tiers ({mode}): {eng.stats}")
+        if (wakes["side1"], wakes["side0"]) != (0, 1):
+            raise AssertionError(f"tiers ({mode}): the sides did not wake into each other's lanes: {wakes}")
+    if mode == "delayed" and guarded[0] != 3:
+        raise AssertionError(f"tiers (delayed): {guarded[0]} guarded wake commits, expected 3")
+    streams = {v.agent_id: list(v.tokens) for v in eng.mains}
+    for aid in ("side0", "side1"):
+        streams[aid] = next(list(s.tokens) for s in eng.sides if s.agent_id == aid)
+    out.update(
+        mode=mode, streams=streams, records=_spawns_and_merges(eng.history), alice_at_merge=min(at_merge),
+        launches=ops.launch_counts(), side_ticks=probe.side_ticks, n_layers=eng.cfg.n_layers,
+        spawns=sum(e["event"] == "spawn" for e in eng.history), wake_lanes=wakes, guarded_commits=guarded[0],
+        cold_wake_to_commit_ms={aid: probe.wake_split(aid, woken_at[aid]) for aid in woken_at},
+        gate_scores=[e["gate_score"] for e in eng.history if e["event"] == "merge"])
+    return out
+
+
+PARK_TOKENS = 48  # max_new_tokens of the parked request
+
+
+def park_run(params, cfg, tok, pipeline: bool, store=None) -> dict:
+    """BatchServer park/unpark: request A decodes 6 serial steps and parks
+    (a copy of its lane goes into ``store``), request B takes the freed
+    lane, 3 steps later A unparks and resumes in the other lane, and
+    ``run_until_done(pipeline=...)`` finishes both. Every admission of
+    unparked requests runs under ``set_sync_debug_mode("error")``.
+    ``store=None`` runs the same calls without parking (the reference).
+    Returns each request's tokens, the guarded admissions and the server's
+    stats."""
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.server import BatchServer
+
+    srv = BatchServer(params, cfg, tok, n_lanes=2, capacity=512, sampling=SamplingParams(greedy=True),
+                      store=store, device=params["embed"].device)
+    guarded = [0]
+    srv._admit_unparked = no_sync(srv._admit_unparked, guarded)
+    a = srv.submit(TIER_ALICE, max_new_tokens=PARK_TOKENS)
+    for _ in range(6):
+        srv.tick()
+    if store is not None and not srv.park(a):
+        raise AssertionError("park: the request was not on a lane")
+    b = srv.submit(TIER_BOB, max_new_tokens=12)
+    for _ in range(3):
+        srv.tick()
+    tier = store.tier_of(f"req{a}") if store is not None else None
+    if store is not None:
+        srv.unpark(a)
+    done = {r.rid: r for r in srv.run_until_done(pipeline=pipeline)}
+    if {r.status for r in done.values()} != {"ok"} or set(done) != {a, b}:
+        raise AssertionError(f"park: {[(r.rid, r.status, r.error) for r in done.values()]}")
+    return {"a": done[a].tokens, "b": done[b].tokens, "a_lane": done[a].lane, "tier": tier,
+            "guarded": guarded[0], "stats": dict(srv.stats), "in_store": len(store.keys()) if store else 0}
+
+
+def _merge_keys(records, keys=("agent", "thought", "accepted")):
+    return [tuple(dict(r)[k] for k in keys) for r in records if dict(r)["event"] == "merge"]
+
+
+def drive_tiers(card: str) -> dict:
+    """Phase 6: the memory tiers at full width, their cold blobs in a
+    directory under ``build/`` that is removed at the end. Returns the
+    launch counts of the delayed-wake run."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="tiers_", dir=ROOT / "build"))
+    try:
+        return _drive_tiers(card, root, t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _drive_tiers(card: str, root: Path, t0: float) -> dict:
+    import contextlib
+    import io as stdio
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.launch import serve
+    from repro_torch.memory import SynapseStore
+    from repro_torch.models import model as tm
+    from repro_torch.serving.sampler import SamplingParams
+
+    cfg = get_config("qwen2.5-0.5b")
+    prism = Prism(tm.init_params(cfg, seed=0), cfg)
+    tok = ByteTokenizer(cfg.vocab_size)
+    log(f"tiers: {cfg.name} L={cfg.n_layers} d_model={cfg.d_model} compute={cfg.compute_dtype} {SERVE} "
+        f"warm_capacity_bytes={TIER_WARM_BYTES} cold_dir={root}")
+    store = lambda name, **kw: SynapseStore(cold_dir=str(root / name), **kw)
+    ref = _tier_run(prism, tok, "never")
+    gc.collect()
+
+    # hibernated to cold and woken at the same boundary: every stream, spawn
+    # and merge (gate scores included) is the never-hibernated run's
+    immediate = _tier_run(prism, tok, "immediate", store("immediate", warm_capacity_bytes=TIER_WARM_BYTES))
+    if immediate["streams"] != ref["streams"] or immediate["records"] != ref["records"]:
+        raise AssertionError("tiers (immediate wake): the streams or the spawns and merges differ from "
+                             "the never-hibernated run's")
+    gc.collect()
+
+    # the phase's schedule: 16 ticks hibernated, woken while run goes on.
+    # The sides merge later than in the never-hibernated run (they sat out
+    # 16 ticks while alice went on), so the river and the gate see another
+    # alice there: alice is compared up to the reference's merge, and each
+    # merge by agent, thought and acceptance; every other stream whole
+    delayed = _tier_run(prism, tok, "delayed", store("delayed", warm_capacity_bytes=TIER_WARM_BYTES))
+    n = ref["alice_at_merge"]
+    d, r = delayed["streams"], ref["streams"]
+    checks = {
+        "sides_equal": all(d[a] == r[a] for a in ("side0", "side1")),
+        "bob_prefix_equal": d["bob"] == r["bob"][: len(d["bob"])],
+        "alice_equal_to_the_reference_merge": d["alice"][:n] == r["alice"][:n] and len(d["alice"]) > n,
+        "spawns_equal": [x for x in delayed["records"] if dict(x)["event"] == "spawn"]
+        == [x for x in ref["records"] if dict(x)["event"] == "spawn"],
+        "merges_equal_by_agent_thought_acceptance": _merge_keys(delayed["records"]) == _merge_keys(ref["records"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"tiers (delayed wake): {checks}")
+    check_launches("tiers", delayed["launches"], delayed["spawns"], delayed["n_layers"], delayed["side_ticks"])
+    gc.collect()
+
+    # kill and restart: bob hibernated warm and woken, hibernated again and
+    # demoted, then the engine and the store are dropped; a new store
+    # recovers the directory and a new engine adopts and wakes bob
+    kdir = str(root / "restart")
+    st = SynapseStore(cold_dir=kdir)
+    eng = _tier_engine(prism, tok, st)
+    probe = _TierProbe(eng)
+    eng.submit(TIER_BOB, lane=0, agent_id="bob")
+    eng.run(16)
+    eng.drain()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.hibernate("bob")
+    warm_hib_ms = (time.perf_counter() - t) * 1e3
+    if st.tier_of("bob") != "warm":
+        raise AssertionError("tiers (restart): bob is not warm")
+    t = time.perf_counter()
+    eng.wake("bob")
+    eng.run(16)
+    warm_wake = probe.wake_split("bob", t)
+    eng.run(16)
+    eng.hibernate("bob")
+    if not st.demote("bob"):
+        raise AssertionError("tiers (restart): bob did not demote")
+    del eng, st, probe
+    gc.collect()
+    st = SynapseStore(cold_dir=kdir)
+    recovered = st.recover(kdir)
+    eng = _tier_engine(prism, tok, st)
+    adopted = eng.adopt_hibernated()
+    if recovered["recovered"] != ["bob"] or adopted != ["bob"]:
+        raise AssertionError(f"tiers (restart): recovered {recovered}, adopted {adopted}")
+    eng.wake("bob")
+    eng.run(32)
+    bob = next(m for m in eng.mains if m.agent_id == "bob")
+    if not bob.active or len(bob.tokens) < bob.prompt_len + 64 or bob.tokens != ref["streams"]["bob"][: len(bob.tokens)]:
+        raise AssertionError("tiers (restart): bob's stream after the restart is not the reference's")
+    restart = {"recovered": recovered["recovered"], "adopted": adopted, "bob_tokens": len(bob.tokens)}
+    del eng, st, bob
+    gc.collect()
+
+    # the BatchServer parks a request to cold (its 512-slot lane is above
+    # the warm capacity) and resumes it in the other lane, in both loops;
+    # both requests' tokens equal a run that never parked, and no unparked
+    # admission syncs with the card
+    park = {}
+    for pipeline in (False, True):
+        never = park_run(prism.params, cfg, tok, pipeline)
+        got = park_run(prism.params, cfg, tok, pipeline,
+                       store(f"park_{pipeline}", warm_capacity_bytes=TIER_WARM_BYTES))
+        if (got["a"], got["b"]) != (never["a"], never["b"]) or got["tier"] != "cold" or got["a_lane"] != 1 \
+                or got["guarded"] < 1 or got["in_store"] or got["stats"]["lost_requests"]:
+            raise AssertionError(f"tiers (park, pipeline={pipeline}): {got} vs {never}")
+        park[f"pipeline={pipeline}"] = {"tokens": len(got["a"]), "guarded_admissions": got["guarded"],
+                                        "rollbacks": got["stats"]["rollbacks"]}
+    gc.collect()
+
+    # the launcher, in process, on the reduced config (the smoke's time
+    # limit): --cold-dir; a dead process's agent left in the directory; then
+    # --cold-dir --recover re-adopts and wakes it while serving
+    small = get_config("qwen2.5-0.5b", reduced=True)
+    ldir = str(root / "launcher")
+    argv = ["--cold-dir", ldir, "--no-stream", "--max-new-tokens", "16"]
+    with contextlib.redirect_stdout(stdio.StringIO()):
+        m1 = serve.main(argv)
+    eng = CortexEngine(Prism(tm.init_params(small, seed=0), small), ByteTokenizer(small.vocab_size),
+                       n_main=2, max_side=4, main_capacity=512, side_max_steps=12, theta=-1.0,
+                       sampling=SamplingParams(temperature=1.0),
+                       store=SynapseStore(cold_dir=ldir, warm_capacity_bytes=1))
+    eng.submit(TIER_BOB, lane=0, agent_id="resident")
+    eng.run(16)
+    eng.hibernate("resident")
+    del eng
+    gc.collect()
+    with contextlib.redirect_stdout(stdio.StringIO()) as second:
+        m2 = serve.main(argv + ["--recover", "--wake-deadline", "60"])
+    text = second.getvalue()
+    if (m1["completed"], m2["completed"]) != (2, 2) or "1 agents re-adopted: ['resident']" not in text \
+            or "0 hibernated, 0 lost" not in text:
+        raise AssertionError(f"tiers (launcher): {m1['completed']}, {m2['completed']} completed\n{text}")
+
+    keep = ("memory_allocated_before_after", "hibernate_ms", "tiers", "snapshot_bytes", "cold_blob_bytes",
+            "codec", "cold_wake_to_commit_ms", "wake_lanes", "guarded_commits", "launches", "side_ticks",
+            "gate_scores")
+    log(json.dumps({
+        "tiers_phase": cfg.name, "card": card, **{k: delayed[k] for k in keep},
+        "immediate_equal": True, "immediate_gate_scores": immediate["gate_scores"],
+        "reference_gate_scores": ref["gate_scores"], "delayed_checks": checks,
+        "warm_hibernate_ms": warm_hib_ms, "warm_wake_to_commit_ms": warm_wake, "restart": restart,
+        "batchserver_park": park,
+        "launcher": [x for x in text.splitlines() if x.startswith(("recover:", "tiers:", "agents:", "faults:"))],
+        "phase_s": time.perf_counter() - t0,
+    }))
+    return delayed["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -708,8 +1083,12 @@ def main() -> int:
     check_reference(dev)
     counts = drive_main_path(card)
     serving = drive_serving(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiers = drive_tiers(card)
 
-    kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name]) for name in ops.KERNELS]
+    kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
+                    tiers_launches=tiers[name]) for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)

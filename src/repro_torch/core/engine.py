@@ -38,12 +38,25 @@ plane: UTF-8 decoding, the router, spawns and merges.
   runs in :meth:`CortexEngine._boundary_ops`, at window boundaries with
   nothing in flight, so a front end's admissions never flush a window.
   Agents carry identities in an :class:`~repro_torch.memory.AgentRegistry`.
+* Memory tiers: agents outlive lane slots. :meth:`CortexEngine.hibernate`
+  copies a lane's caches and per-lane scalars off the card (one host sync,
+  at a drain boundary) into a :class:`~repro_torch.memory.SynapseStore`
+  (warm host memory, cold framed blobs on disk) and frees the lane;
+  :meth:`CortexEngine.wake` prefetches the snapshot back on the store's
+  worker thread (non-blocking copies on a stream of their own) and commits
+  it into a free lane at a window boundary, between the ring fetch and the
+  next dispatch, without flushing the pipeline: the commit makes the
+  engine's stream wait for the copies' event, so no host sync. Lanes woken
+  after a fetched window skip that window's post-processing once
+  (``_fresh_wakes``). ``submit_agent`` hibernates the least recently bound
+  river when every lane is taken, ``hibernate_idle_ticks`` demotes idle
+  rivers at boundaries, and :meth:`CortexEngine.adopt_hibernated` re-adopts
+  the agents a recovered store holds after a restart.
 
 Caches and per-lane state are updated in place where the reference donated
 its buffers. ``stats`` keeps the reference's accounting: a window counts as
-one tick dispatch, each ring fetch and each merge decision as one host sync.
-The memory tiers (hibernate, wake, idle-tick demotion) are not ported yet:
-where the reference would hibernate an agent, the port raises.
+one tick dispatch, each ring fetch, each merge decision and each hibernate
+as one host sync.
 """
 from __future__ import annotations
 
@@ -59,7 +72,10 @@ from repro_torch.core.router import CortexRouter
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ring_append
-from repro_torch.memory import ACTIVE, REGISTERED, AgentRegistry
+from repro_torch.memory import (
+    ACTIVE, HIBERNATED, LOST, REGISTERED, AgentRegistry, SnapshotLostError, SynapseStore,
+)
+from repro_torch.memory.store import device_put_fn, ready_on_stream
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -219,12 +235,6 @@ def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec,
 # (ByteTokenizer: ids 0..255 are raw bytes; every router tag needs them both)
 _OPEN_BRACKET, _CLOSE_BRACKET = ord("["), ord("]")
 
-# the port has no memory tiers yet: where the reference would hibernate an
-# agent, the port says so instead of doing something else
-_NO_TIERS = ("hibernating agents needs the memory tiers (synapse store, hibernate/wake), "
-             "which the port does not have yet: ROADMAP item 9")
-
-
 class AdaptiveWindow:
     """Window-length policy: lengthen ``sync_every`` while drains are quiet.
 
@@ -275,6 +285,29 @@ class AgentView:
     prompt_len: int = 0
 
 
+# the durable part of an AgentView: what crash recovery needs to rebuild the
+# host-side view of a hibernated agent (lane and active are set at wake)
+_VIEW_META_FIELDS = (
+    "agent_id", "kind", "parent_lane", "task", "text", "tokens",
+    "position", "steps", "prompt_len",
+)
+
+
+def _view_to_meta(view: AgentView) -> dict:
+    out = {f: getattr(view, f) for f in _VIEW_META_FIELDS}
+    out["tokens"] = [int(t) for t in out["tokens"]]
+    return out
+
+
+def _view_from_meta(meta: dict) -> AgentView:
+    view = AgentView(meta["agent_id"], -1, meta["kind"])
+    for f in _VIEW_META_FIELDS[2:]:
+        setattr(view, f, meta[f])
+    view.tokens = list(meta["tokens"])
+    view.active = False
+    return view
+
+
 class CortexEngine:
     def __init__(
         self,
@@ -296,7 +329,9 @@ class CortexEngine:
         pipeline: bool = True,
         side_prompt_cap: int = 64,
         compute_dtype: str | None = None,
+        store: SynapseStore | None = None,
         hibernate_idle_ticks: int | None = None,
+        wake_deadline_s: float | None = None,
         device=None,
     ):
         """Runs on ``device``, the card unless ``device="cpu"``, which must
@@ -308,10 +343,14 @@ class CortexEngine:
         many ticks while drains are quiet (None pins them at ``sync_every``;
         off-ladder values round down to ``sync_every * 2^k``).
         ``pipeline=False`` keeps the serial dispatch → drain loop, whose
-        windows stay pinned. ``hibernate_idle_ticks`` (idle-tick demotion to
-        the memory tiers) is refused: the port has no tiers yet."""
-        if hibernate_idle_ticks is not None:
-            raise NotImplementedError(_NO_TIERS)
+        windows stay pinned.
+
+        ``store`` holds hibernated agents (a fresh warm-only
+        :class:`~repro_torch.memory.SynapseStore` by default);
+        ``hibernate_idle_ticks`` hibernates a river whose last submit or wake
+        is that many virtual ticks old, at a window boundary;
+        ``wake_deadline_s`` bounds every wake's promotion unless a wake
+        names its own deadline."""
         self.device = resolve_device(device)
         if prism.device != self.device:
             raise ValueError(f"the Prism's weights are on {prism.device}, the engine runs on {self.device}")
@@ -345,6 +384,19 @@ class CortexEngine:
         self.sides = [AgentView(f"side{i}", i, "side") for i in range(max_side)]
         self.registry = AgentRegistry()
         self._agent_seq = 0
+        # memory tiers: hibernated contexts park in the store, the registry
+        # keeps identity and LRU order, and wakes land through prefetch
+        # tickets committed at window boundaries
+        self.store = store if store is not None else SynapseStore()
+        self.hibernate_idle_ticks = hibernate_idle_ticks
+        self.wake_deadline_s = wake_deadline_s
+        self._wake_tickets: dict[str, object] = {}
+        self._pending_wakes: list[str] = []
+        # (kind, lane) pairs woken between a ring fetch and that window's
+        # post-processing: they were not on the device for the fetched
+        # window, so its post-processing skips them
+        self._fresh_wakes: set[tuple[str, int]] = set()
+        self._put = device_put_fn(self.device)
         # host mirrors of the per-lane sampling tensors: they pick the
         # sampler's fast path without reading the device
         self._main_sp: list[SamplingParams] = [self.sampling] * n_main
@@ -365,6 +417,11 @@ class CortexEngine:
             # drains whose host post-processing overlapped the next window,
             # and the dispatched window lengths (window_hist[w] = count)
             "overlapped_drains": 0, "window_hist": {},
+            "hibernates": 0, "wakes": 0,
+            # wake_failures: the snapshot is intact and the agent stays
+            # hibernated (retryable); lost_agents: the snapshot is gone and
+            # the agent is LOST; recoveries: agents re-adopted after a restart
+            "wake_failures": 0, "lost_agents": 0, "recoveries": 0,
         }
         self._pending = 0  # ticks since last drain (== ring cursor)
         # serving-dtype weights, cast once; the Prism's copy stays the master
@@ -461,27 +518,38 @@ class CortexEngine:
             agent_id = f"main{lane}"
             if agent_id in self.registry:
                 rec = self.registry.get(agent_id)
-                if rec.status == ACTIVE and rec.lane != lane:
-                    # the per-lane identity is alive in another lane: mint
-                    # a fresh one instead of clobbering it
+                if rec.status == HIBERNATED or (rec.status == ACTIVE and rec.lane != lane):
+                    # the per-lane identity is alive elsewhere (parked, or
+                    # woken into another lane): mint a fresh one instead of
+                    # clobbering it
                     agent_id = f"main{lane}.{self._agent_seq}"
                     self._agent_seq += 1
         elif agent_id in self.registry:
             rec = self.registry.get(agent_id)
             if rec.status == ACTIVE and rec.lane != lane:
                 raise ValueError(f"agent {agent_id!r} is already active on lane {rec.lane}")
+            if rec.status == HIBERNATED:
+                # re-submitting replaces the parked context outright
+                self.store.drop(agent_id)
+                self._wake_tickets.pop(agent_id, None)
+                if agent_id in self._pending_wakes:
+                    self._pending_wakes.remove(agent_id)
         self.registry.register(agent_id, "main")
         return agent_id
 
     def submit_agent(self, prompt: str, agent_id: str | None = None,
                      sampling: SamplingParams | None = None):
         """Lane-less submit: place a (new or registered) agent on a free
-        main lane. With every river lane taken the reference hibernates the
-        least recently touched resident; the port has no memory tiers yet
-        and raises instead."""
+        main lane, hibernating the least recently bound resident when every
+        river lane is taken: ``n_main`` bounds the *active* agents, not the
+        registered ones."""
         lane = self._free_main_lane()
         if lane < 0:
-            raise NotImplementedError(f"no free main lane: {_NO_TIERS}")
+            if self._evict_lru_main() is None:
+                raise RuntimeError("no free main lane and no evictable resident "
+                                   "(all mains have live side streams)")
+            lane = self._free_main_lane()
+            assert lane >= 0
         if agent_id is None:
             agent_id = f"agent{self._agent_seq}"
             self._agent_seq += 1
@@ -624,8 +692,10 @@ class CortexEngine:
         inflight = 0  # virtual ticks of the window on the device
         while remaining or inflight:
             if not inflight:
-                # window boundary, nothing in flight: admissions land here
-                self._boundary_ops()
+                # window boundary, nothing in flight: idle-tick demotions,
+                # ready wakes and admissions land here (an idle engine
+                # waits for its prefetches, so a wake-only run progresses)
+                self._boundary_ops(wait=not self._any_active())
                 if not self._any_active():
                     self.stats["ticks"] += remaining
                     return
@@ -636,6 +706,10 @@ class CortexEngine:
                 continue
             rings, nwin = self._fetch_rings(), inflight
             inflight = 0
+            # ready wakes commit between the ring fetch and the next
+            # dispatch: window t+1 carries the woken lanes, and nothing is
+            # flushed (no demotions here: window t's views are still stale)
+            self._commit_ready_wakes(mark_fresh=True)
             if remaining and self._any_active() and self._gate(rings, nwin):
                 # overlap: the device runs window t+1 while the host does
                 # window t's decoding and router work (control-free by the
@@ -656,7 +730,7 @@ class CortexEngine:
         remaining = n_ticks
         while remaining > 0:
             if self._pending == 0:
-                self._boundary_ops()
+                self._boundary_ops(wait=not self._any_active())
             if not self._any_active():
                 self.stats["ticks"] += remaining
                 break
@@ -672,13 +746,17 @@ class CortexEngine:
         self.drain()
         self._boundary_ops()
 
-    def _boundary_ops(self) -> int:
-        """Window-boundary control plane, run with nothing in flight: the
-        front end's admission hook (retire finished request lanes, admit
-        queued ones). Returns whether the hook did anything."""
+    def _boundary_ops(self, *, wait: bool = False) -> int:
+        """Window-boundary control plane, run with nothing in flight:
+        idle-tick demotions, then wake commits, then the front end's
+        admission hook (retire finished request lanes, admit queued ones).
+        ``wait=True`` blocks on outstanding prefetch tickets (an engine with
+        nothing else to do). Returns how many operations landed."""
+        did = self._auto_hibernate()
+        did += self._commit_ready_wakes(wait=wait and bool(self._pending_wakes))
         if self.admission_hook is not None:
-            return int(bool(self.admission_hook()))
-        return 0
+            did += int(bool(self.admission_hook()))
+        return did
 
     # ------------------------------------------------------------------
     def drain(self):
@@ -728,8 +806,8 @@ class CortexEngine:
         # 1. rivers: append the window's tokens (incremental UTF-8 decode)
         main_chunks: dict[int, str] = {}
         for m in self.mains:
-            if not m.active:
-                continue
+            if not m.active or ("main", m.lane) in self._fresh_wakes:
+                continue  # a fresh wake was not on the device for this window
             toks = [int(t) for t in main_ring[m.lane, :n] if t >= 0]
             chunk = self._decoder(m.agent_id).feed(toks)
             m.tokens.extend(toks)
@@ -743,8 +821,8 @@ class CortexEngine:
         # 2. streams: append, detect completion (trigger or step budget)
         finished = []
         for s in self.sides:
-            if not s.active:
-                continue
+            if not s.active or ("side", s.lane) in self._fresh_wakes:
+                continue  # a fresh wake was not on the device for this window
             s.steps += n
             s.position += n
             raw = [int(t) for t in side_ring[s.lane, :n] if t >= 0]
@@ -795,6 +873,7 @@ class CortexEngine:
             self.window.on_quiet_drain()
         else:
             self.window.on_event()
+        self._fresh_wakes.clear()  # the next window has the woken lanes aboard
 
     # ------------------------------------------------------------------
     def _free_side_lane(self) -> int:
@@ -810,20 +889,19 @@ class CortexEngine:
         return -1
 
     def _lanes_with_children(self) -> set[int]:
-        """Main lanes some live side stream will merge into."""
-        return {s.parent_lane for s in self.sides if s.active}
+        """Main lanes some side stream (live or hibernated) will merge
+        into. Hibernating or retiring such a main would let another agent
+        claim the lane and receive the child's injection."""
+        lanes = {s.parent_lane for s in self.sides if s.active}
+        for rec in self.registry.with_status(HIBERNATED, "side"):
+            lanes.add(rec.saved["view"].parent_lane)
+        return lanes
 
     def _spawn_lane(self, parent_lane: int, side_lane: int):
         """Compress ONE parent lane into ONE side lane, in place."""
         st = self.state
-        parent = model_lib.ModelCaches(groups=tuple(
-            cache_lib.map_cache(lambda a: a[:, parent_lane:parent_lane + 1], c)
-            for c in st.main_caches.groups
-        ))
-        comp = spawn_caches(self.cfg, parent, self.side_spec)
-        for dst, src in zip(st.side_caches.groups, comp.groups):
-            for a, b in zip(cache_lib.tensors(dst), cache_lib.tensors(src)):
-                a[:, side_lane:side_lane + 1].copy_(b)
+        comp = spawn_caches(self.cfg, model_lib.lane_caches(st.main_caches, parent_lane), self.side_spec)
+        model_lib.write_lane(st.side_caches, comp, side_lane)
 
     def _spawn_side(self, parent: AgentView, task: str, sampling: SamplingParams | None = None):
         lane = self._free_side_lane()
@@ -909,6 +987,253 @@ class CortexEngine:
         self.history.append({"event": "retire", "agent": m.agent_id})
 
     # ------------------------------------------------------------------
+    # memory tiers: hibernate parks an agent's lane in the store (card →
+    # warm host memory → cold disk); wake prefetches it back on the store's
+    # worker thread and commits it at a window boundary
+    # ------------------------------------------------------------------
+    def _gather_main_lane(self, lane: int) -> dict:
+        """One river lane's device state, as the reference snapshots it
+        (views: the store copies them)."""
+        st = self.state
+        return {"caches": model_lib.lane_caches(st.main_caches, lane), "tok": st.main_tok[lane],
+                "pos": st.main_pos[lane], "hidden": st.main_hidden[lane]}
+
+    def _gather_side_lane(self, lane: int) -> dict:
+        st = self.state
+        return {"caches": model_lib.lane_caches(st.side_caches, lane), "tok": st.side_tok[lane],
+                "pos": st.side_pos[lane], "step": st.side_step[lane], "plen": st.side_plen[lane],
+                "prompt": st.side_prompt[lane], "hidden": st.side_hidden[lane]}
+
+    def _evict_lru_main(self) -> str | None:
+        blocked = self._lanes_with_children()
+        cands = [r for r in self.registry.with_status(ACTIVE, "main") if r.lane not in blocked]
+        if not cands:
+            return None
+        rec = min(cands, key=lambda r: r.last_event)
+        self.hibernate(rec.agent_id)
+        return rec.agent_id
+
+    def hibernate(self, agent_id: str):
+        """Move an agent's lane off the card: copy its caches and per-lane
+        scalars into the store's warm tier (ONE host sync, at a drain
+        boundary, never inside a window) and free the lane. The router's
+        retained tail and the UTF-8 decoder's pending bytes stay with the
+        agent, so a tag or a codepoint split across the hibernation still
+        completes after the wake."""
+        rec = self.registry.get(agent_id)
+        if rec.status != ACTIVE:
+            raise ValueError(f"agent {agent_id!r} is not active (status={rec.status})")
+        lane, kind = rec.lane, rec.kind
+        view = (self.mains if kind == "main" else self.sides)[lane]
+        assert view.agent_id == agent_id
+        if kind == "main" and lane in self._lanes_with_children():
+            raise ValueError(f"cannot hibernate {agent_id!r}: side streams still target "
+                             f"main lane {lane} for their merge")
+        self.drain()  # boundary-align: no host sync inside a window
+        self.window.on_event()
+        snap = self._gather_main_lane(lane) if kind == "main" else self._gather_side_lane(lane)
+        sp = (self._main_sp if kind == "main" else self._side_sp)[lane]
+        # durable bookkeeping rides the snapshot (and a cold blob's frame
+        # metadata): what a restarted process needs to re-adopt the agent
+        meta = {
+            "kind": kind,
+            "view": _view_to_meta(view),
+            "sampling": dataclasses.asdict(sp),
+            "router": self.router.export_state(agent_id),
+            "hibernate_tick": self.stats["ticks"],
+            "utf8_pending": list(self._decoder(agent_id).pending),
+        }
+        self.store.put(agent_id, snap, meta=meta)  # the copy off the card: the one sync
+        if kind == "main":
+            self.state.main_active[lane] = False
+            self.mains[lane] = AgentView(f"main{lane}", lane, "main")
+        else:
+            self.state.side_active[lane] = False
+            self.sides[lane] = AgentView(f"side{lane}", lane, "side")
+        self.stats["aux_dispatches"] += 2
+        self.stats["host_syncs"] += 1
+        self.stats["hibernates"] += 1
+        view.active, view.lane = False, -1
+        self.registry.hibernate(agent_id, {"view": view, "sampling": sp})
+        self.prism.release(agent_id)
+        self.history.append({"event": "hibernate", "agent": agent_id, "kind": kind})
+
+    def wake(self, agent_id: str, *, wait: bool = False, deadline_s: float | None = None):
+        """Bring a hibernated agent back toward a lane. Returns at once after
+        starting the prefetch (the store's worker reads the warm or cold
+        snapshot and enqueues its copy to the card); the wake *commits* into
+        a free lane at the next window boundary inside :meth:`run`, without
+        flushing the pipeline. ``wait=True`` blocks until the agent is live.
+
+        Failures degrade: transient read failures retry inside the store;
+        ``deadline_s`` (default ``wake_deadline_s``) bounds the promotion. A
+        wake that fails with the snapshot intact leaves the agent HIBERNATED
+        (counted in ``stats["wake_failures"]``); a lost snapshot marks it
+        LOST, frees no lane, and the engine keeps ticking."""
+        rec = self.registry.get(agent_id)
+        if rec.status == ACTIVE:
+            return (self.mains if rec.kind == "main" else self.sides)[rec.lane]
+        if rec.status != HIBERNATED:
+            raise ValueError(f"agent {agent_id!r} has no hibernated context (status={rec.status})")
+        if agent_id not in self._wake_tickets:
+            self._wake_tickets[agent_id] = self.store.prefetch(
+                agent_id, self._put,
+                deadline_s=self.wake_deadline_s if deadline_s is None else deadline_s,
+            )
+            self._pending_wakes.append(agent_id)
+        if wait:
+            self.flush_wakes()
+            rec = self.registry.get(agent_id)
+            if rec.status != ACTIVE:
+                if rec.status == LOST:
+                    raise SnapshotLostError(agent_id, "context permanently lost during wake")
+                raise RuntimeError(f"wake of {agent_id!r} did not land "
+                                   f"(status={rec.status}: lane-starved or wake failed)")
+            return (self.mains if rec.kind == "main" else self.sides)[rec.lane]
+        return rec
+
+    def flush_wakes(self):
+        """Block until every pending wake has committed (or is lane-starved)."""
+        self.drain()
+        self._commit_ready_wakes(wait=True)
+
+    def _commit_ready_wakes(self, *, wait: bool = False, mark_fresh: bool = False) -> int:
+        """Land the prefetched wakes whose tickets are ready (all of them
+        with ``wait=True``). Callers guarantee a window boundary (ring
+        cursor 0): the scatters here join the stream before the next
+        window. ``mark_fresh``: a fetched window is still to be
+        post-processed, which the woken lanes were not part of."""
+        if not self._pending_wakes:
+            return 0
+        assert self._pending == 0, "wake commit must happen at a window boundary"
+        # supervision: a dead prefetch thread fails its in-flight ticket
+        # here (instead of hanging a waiter) and is respawned
+        self.store.heal_worker()
+        committed, still = 0, []
+        for aid in self._pending_wakes:
+            ticket = self._wake_tickets[aid]
+            ticket.expire()  # host-side deadline: a stuck worker cannot block this
+            if not ticket.failed() and not (wait or ticket.ready()):
+                still.append(aid)
+                continue
+            if wait and not ticket.ready():
+                try:
+                    ticket.result(timeout=ticket.remaining())
+                except Exception:
+                    pass  # the terminal state is recorded on the ticket
+                ticket.expire()
+            if ticket.failed():
+                self._fail_wake(aid, ticket.error)
+                continue  # degraded, not pending: the engine keeps ticking
+            if self._commit_wake(aid, ticket, mark_fresh=mark_fresh):
+                committed += 1
+            else:
+                still.append(aid)  # lane-starved: stays pending
+        self._pending_wakes = still
+        return committed
+
+    def _fail_wake(self, agent_id: str, err: BaseException | None) -> None:
+        """A wake ticket failed. A KeyError-family failure (quarantined
+        blob, vanished file, dropped snapshot) means the context is gone:
+        the agent is LOST. Anything else (deadline, dead worker, exhausted
+        retries) leaves the snapshot intact: the agent stays HIBERNATED and
+        a later wake may succeed."""
+        self._wake_tickets.pop(agent_id, None)
+        if isinstance(err, KeyError) or agent_id not in self.store:
+            self.registry.mark_lost(agent_id)
+            self.store.drop(agent_id)
+            self.router.reset(agent_id)
+            self._decoders.pop(agent_id, None)
+            self.stats["lost_agents"] += 1
+            self.history.append({"event": "lost", "agent": agent_id, "error": repr(err)})
+        else:
+            self.stats["wake_failures"] += 1
+            self.history.append({"event": "wake_failed", "agent": agent_id, "error": repr(err)})
+
+    def _commit_wake(self, agent_id: str, ticket, *, mark_fresh: bool = False) -> bool:
+        """Scatter a prefetched snapshot into a free lane, in place. The
+        stream waits for the prefetch's copies (no host sync) and the
+        prefetched tensors stay reserved until the scatters that read them
+        have run."""
+        rec = self.registry.get(agent_id)
+        kind = rec.kind
+        lane = self._free_main_lane() if kind == "main" else self._free_side_lane()
+        if lane < 0:
+            return False
+        part = ready_on_stream(*ticket.result(), self.device)
+        del self._wake_tickets[agent_id]
+        view, sp = rec.saved["view"], rec.saved["sampling"]
+        st = self.state
+        if kind == "main":
+            self._main_sp[lane] = sp
+            model_lib.write_lane(st.main_caches, part["caches"], lane)
+            for dst, key in ((st.main_tok, "tok"), (st.main_pos, "pos"), (st.main_hidden, "hidden")):
+                dst[lane].copy_(part[key])
+            st.main_active[lane].fill_(True)  # a fill: no host sync in the commit
+            st.main_samp.set_lane(lane, *lane_values(sp))
+            self.mains[lane] = view
+        else:
+            self._side_sp[lane] = sp
+            model_lib.write_lane(st.side_caches, part["caches"], lane)
+            for dst, key in ((st.side_tok, "tok"), (st.side_pos, "pos"), (st.side_step, "step"),
+                             (st.side_plen, "plen"), (st.side_prompt, "prompt"), (st.side_hidden, "hidden")):
+                dst[lane].copy_(part[key])
+            st.side_active[lane].fill_(True)
+            st.side_samp.set_lane(lane, *lane_values(sp))
+            self.sides[lane] = view
+        view.lane, view.active = lane, True
+        self.stats["aux_dispatches"] += 2 if kind == "main" else 3
+        self.stats["wakes"] += 1
+        self.prism.acquire(agent_id)
+        self.registry.bind(agent_id, lane).bound_tick = self.stats["ticks"]
+        self.store.drop(agent_id)
+        self.window.on_event()
+        if mark_fresh:
+            self._fresh_wakes.add((kind, lane))
+        self.history.append({"event": "wake", "agent": agent_id, "lane": lane})
+        return True
+
+    def adopt_hibernated(self) -> list[str]:
+        """Crash recovery: after ``store.recover()`` rebuilt the cold index
+        from disk, re-register every snapshot whose metadata names an agent
+        this engine does not hold, with its view, sampling parameters, router
+        tail and UTF-8 pending bytes. Adopted agents come back HIBERNATED; a
+        :meth:`wake` makes them live, and their greedy streams continue
+        bitwise. Returns the adopted ids."""
+        adopted = []
+        for key in self.store.keys():
+            meta = self.store.meta_of(key)
+            if not isinstance(meta, dict) or meta.get("kind") not in ("main", "side"):
+                continue
+            if key in self.registry and self.registry.get(key).status in (ACTIVE, HIBERNATED):
+                continue  # a live identity wins over its stale snapshot
+            view = _view_from_meta(meta["view"])
+            sp = SamplingParams(**meta["sampling"])
+            self.registry.register(key, meta["kind"])
+            self.registry.hibernate(key, {"view": view, "sampling": sp})
+            if meta.get("router"):
+                self.router.restore_state(key, meta["router"])
+            if meta.get("utf8_pending"):
+                self._decoder(key).restore(bytes(meta["utf8_pending"]))
+            self.stats["recoveries"] += 1
+            self.history.append({"event": "adopt", "agent": key})
+            adopted.append(key)
+        return adopted
+
+    def _auto_hibernate(self) -> int:
+        """Idle-tick demotion: rivers whose last submit or wake is
+        ``hibernate_idle_ticks`` virtual ticks old or more go to the warm
+        tier. Runs at boundaries with nothing in flight."""
+        if self.hibernate_idle_ticks is None:
+            return 0
+        blocked = self._lanes_with_children()
+        due = [r for r in self.registry.with_status(ACTIVE, "main")
+               if self.stats["ticks"] - r.bound_tick >= self.hibernate_idle_ticks and r.lane not in blocked]
+        for r in due:
+            self.hibernate(r.agent_id)
+        return len(due)
+
+    # ------------------------------------------------------------------
     def _merge_side(self, s: AgentView, thought: str):
         ids = self.tok.encode(thought)[-self.inject_tokens:]
         ids = ids + [self.tok.pad_id] * (self.inject_tokens - len(ids))
@@ -939,7 +1264,8 @@ class CortexEngine:
 
     # ------------------------------------------------------------------
     def memory_report(self) -> dict:
-        """Eq. 1 accounting over the live lanes (drains first)."""
+        """Eq. 1 accounting over the live lanes (drains first), with the
+        memory tiers' bytes and the registry's agent counts."""
         self.drain()
         per_agent = {}
         for m in self.mains:
@@ -948,8 +1274,10 @@ class CortexEngine:
         for s in self.sides:
             if s.active:
                 per_agent[s.agent_id] = tree_bytes(_lane_slice(self.state.side_caches, s.lane))
-        rep = self.prism.memory_report(per_agent)
-        rep["agents"] = self.registry.counts()
+        # hibernated agents are absent from per_agent: their device share
+        # is zero; the tiers report their host and disk bytes
+        rep = self.prism.memory_report(per_agent, store_report=self.store.report(),
+                                       agents=self.registry.counts())
         rep["per_agent_bytes"] = dict(per_agent)
         # the serving-dtype cast is a real resident copy where the compute
         # dtype differs from the parameter dtype (shared leaves cost 0)

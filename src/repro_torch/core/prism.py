@@ -51,10 +51,18 @@ class Prism:
     def weight_bytes(self) -> int:
         return tree_bytes(self._params)
 
-    def memory_report(self, agent_cache_bytes: dict[str, int]) -> dict:
-        """Eq. 1 accounting: weights once + per-agent context."""
+    def memory_report(self, agent_cache_bytes: dict[str, int], *, store_report: dict | None = None,
+                      agents: dict[str, int] | None = None) -> dict:
+        """Eq. 1 accounting: weights once + per-agent context.
+
+        ``store_report`` (a ``SynapseStore.report()``) splits the total over
+        the memory hierarchy: **hot** is the device context of the agents in
+        ``agent_cache_bytes``; **warm** and **cold** are the host and disk
+        bytes of hibernated agents, which hold no device bytes. ``agents``
+        (an ``AgentRegistry.counts()``) gives the registered and active
+        counts."""
         ctx = sum(agent_cache_bytes.values())
-        return {
+        rep = {
             "weight_bytes": self.weight_bytes(),
             "n_agents": len(agent_cache_bytes),
             "context_bytes_total": ctx,
@@ -63,3 +71,15 @@ class Prism:
             # counterfactual: each agent carrying its own weight copy
             "standard_architecture_bytes": len(agent_cache_bytes) * self.weight_bytes() + ctx,
         }
+        if store_report is not None:
+            rep["tiers"] = {
+                "hot_bytes": ctx,
+                "warm_bytes": store_report.get("warm_bytes", 0),
+                "cold_bytes": store_report.get("cold_bytes", 0),
+                "cold_raw_bytes": store_report.get("cold_raw_bytes", 0),
+                "n_warm": store_report.get("n_warm", 0),
+                "n_cold": store_report.get("n_cold", 0),
+            }
+        if agents is not None:
+            rep["agents"] = dict(agents)
+        return rep

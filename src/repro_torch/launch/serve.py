@@ -23,8 +23,18 @@ final SLO summary (TTFT, p50/p99 tick latency, token shares, fairness
 counters) follows. Weights are random, from ``init_params`` seeded 0;
 ``--reduced`` (the default) is the small smoke variant of the config,
 ``--full`` the published widths. :func:`main` returns the front end's
-metrics. The memory tiers (``--cold-dir``, ``--recover``,
-``--wake-deadline`` in the reference) are not ported yet.
+metrics.
+
+Crash recovery: point ``--cold-dir`` at a persistent directory and a later
+run with ``--recover`` rebuilds the cold tier from disk (integrity-checked;
+corrupt blobs quarantined), re-adopts the agents it finds and wakes them:
+their streams continue bitwise where the dead process stopped.
+``--wake-deadline`` bounds every tier promotion (engine ``wake`` and server
+``unpark``), so a stalled disk degrades to a counted failure instead of a
+hang:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --cold-dir /tmp/cold
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --cold-dir /tmp/cold --recover
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from repro_torch.core.engine import CortexEngine
 from repro_torch.core.prism import Prism
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
+from repro_torch.memory import SynapseStore
 from repro_torch.models import model as model_lib
 from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.sampler import SamplingParams
@@ -140,22 +151,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card; 'cpu' "
                          "to run on the CPU)")
+    ap.add_argument("--wake-deadline", type=float, default=None, metavar="SECONDS",
+                    help="bound every cold->device promotion: engine wake() "
+                         "and server unpark() fail observably past this")
+    ap.add_argument("--cold-dir", default=None,
+                    help="directory for the cold (disk) tier; enables --recover")
+    ap.add_argument("--recover", action="store_true",
+                    help="rebuild the cold tier from --cold-dir and re-adopt "
+                         "the hibernated agents found there before serving")
     args = ap.parse_args(argv)
+    if args.recover and not args.cold_dir:
+        ap.error("--recover requires --cold-dir")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     params = model_lib.init_params(cfg, seed=0, device=device)
     tok = ByteTokenizer(cfg.vocab_size)
+    store = SynapseStore(cold_dir=args.cold_dir) if args.cold_dir else None
     tenants = parse_tenants(args.tenants)
 
     engine = None
     if args.mode == "batch":
         backend = BatchServer(params, cfg, tok, n_lanes=4, capacity=512,
-                              sampling=SamplingParams(temperature=0.9), device=device)
+                              sampling=SamplingParams(temperature=0.9), store=store,
+                              wake_deadline_s=args.wake_deadline, device=device)
     else:
         engine = CortexEngine(Prism(params, cfg, device=device), tok, n_main=2, max_side=4,
                               main_capacity=512, side_max_steps=12, theta=-1.0,
-                              sampling=SamplingParams(temperature=1.0), device=device)
+                              sampling=SamplingParams(temperature=1.0), store=store,
+                              wake_deadline_s=args.wake_deadline, device=device)
+        if args.recover:
+            rec_report = engine.store.recover(args.cold_dir)
+            adopted = engine.adopt_hibernated()
+            print(f"recover: {len(rec_report['recovered'])} cold entries rebuilt "
+                  f"({len(rec_report['orphans_adopted'])} orphan blobs), "
+                  f"{len(rec_report['quarantined'])} quarantined, "
+                  f"{len(rec_report['lost'])} lost; "
+                  f"{len(adopted)} agents re-adopted: {adopted}")
+            for aid in adopted:
+                engine.wake(aid)
         backend = engine
 
     fe = ServingFrontend(backend, tenants=tenants, default_max_new_tokens=args.max_new_tokens)
@@ -201,10 +235,25 @@ def main(argv=None) -> dict:
 
     if engine is not None:
         rep = engine.memory_report()
-        agents = rep["agents"]
+        tiers, agents = rep["tiers"], rep["agents"]
         print(f"memory: weights {rep['weight_bytes']/1e6:.1f}MB shared across "
               f"{rep['n_agents']} agents; ctx/agent {rep['context_bytes_per_agent']/1e6:.2f}MB")
-        print(f"agents: {agents['registered']} registered, {agents['active']} active")
+        print(f"tiers:  hot {tiers['hot_bytes']/1e6:.2f}MB (device) | "
+              f"warm {tiers['warm_bytes']/1e6:.2f}MB (host, {tiers['n_warm']} agents) | "
+              f"cold {tiers['cold_bytes']/1e6:.2f}MB (disk, {tiers['n_cold']} agents)")
+        print(f"agents: {agents['registered']} registered, {agents['active']} active, "
+              f"{agents['hibernated']} hibernated, {agents['lost']} lost")
+        # resilience counters: all zeros on a healthy run; nonzero values are
+        # the memory hierarchy degrading instead of crashing
+        srep = engine.store.report()
+        print(f"faults: {srep['stat_quarantined']} quarantined, "
+              f"{srep['stat_wake_retries']} wake retries, "
+              f"{srep['stat_recovered']} recovered, "
+              f"{srep['stat_prefetch_errors']} prefetch errors, "
+              f"{srep['stat_worker_respawns']} worker respawns; "
+              f"engine: {engine.stats['wake_failures']} wake failures, "
+              f"{engine.stats['lost_agents']} lost, "
+              f"{engine.stats['recoveries']} recoveries")
     return m
 
 

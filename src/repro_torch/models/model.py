@@ -148,6 +148,20 @@ def layer_cache(c, i: int):
     return cache_lib.map_cache(lambda a: a[i], c)
 
 
+def lane_caches(caches: ModelCaches, lane: int) -> ModelCaches:
+    """One lane of the stacked caches, keeping the lane axis (axis 1; axis
+    0 is the stacked layer dim), as views."""
+    return ModelCaches(groups=tuple(cache_lib.map_cache(lambda a: a[:, lane:lane + 1], c) for c in caches.groups))
+
+
+def write_lane(caches: ModelCaches, part: ModelCaches, lane: int) -> None:
+    """In place: ``lane`` of the stacked caches takes the values of the
+    one-lane caches ``part``."""
+    for dst, src in zip(caches.groups, part.groups):
+        for a, b in zip(cache_lib.tensors(dst), cache_lib.tensors(src)):
+            a[:, lane:lane + 1].copy_(b)
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -218,11 +232,9 @@ def prefill_lane(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, la
     single-lane cache, which then overwrites lane ``lane`` in place.
     Returns (logits_last [1,V], hidden_last [1,d], caches)."""
     dev = caches.groups[0].length.device
-    lane_caches = init_caches(cfg, 1, spec, device=dev)
-    logits, hidden, lane_caches = prefill(params, cfg, inputs, lane_caches, spec=spec, chunk=chunk)
-    for full, part in zip(caches.groups, lane_caches.groups):
-        for a, b in zip(cache_lib.tensors(full), cache_lib.tensors(part)):
-            a[:, lane:lane + 1].copy_(b)
+    fresh = init_caches(cfg, 1, spec, device=dev)
+    logits, hidden, fresh = prefill(params, cfg, inputs, fresh, spec=spec, chunk=chunk)
+    write_lane(caches, fresh, lane)
     return logits, hidden, caches
 
 

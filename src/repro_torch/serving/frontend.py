@@ -575,7 +575,8 @@ class ServingFrontend:
             if req.cancel_requested:
                 srv.cancel(req.backend_id)  # tap -> _finish: observable
         while True:
-            free = sum(r is None for r in srv.lanes) - len(srv.queue)
+            # a resume ticket holds a free lane as surely as a queued prompt
+            free = sum(r is None for r in srv.lanes) - len(srv.queue) - len(srv._resume)
             if free <= 0:
                 break
             with self._lock:

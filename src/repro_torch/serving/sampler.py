@@ -42,10 +42,13 @@ class LaneSampling:
     top_p: torch.Tensor        # [B] f32
 
     def set_lane(self, lane: int, temp: float, top_k: int, top_p: float):
-        """In place: one lane's parameters (an admission-time update)."""
-        self.temperature[lane] = temp
-        self.top_k[lane] = top_k
-        self.top_p[lane] = top_p
+        """In place: one lane's parameters (an admission-time update). A
+        fill with a host number, which no host sync precedes (an assignment
+        of a Python number to a card tensor's item may copy it over and
+        wait)."""
+        self.temperature[lane].fill_(temp)
+        self.top_k[lane].fill_(top_k)
+        self.top_p[lane].fill_(top_p)
 
 
 def lane_values(params: SamplingParams) -> tuple[float, int, float]:

@@ -28,8 +28,14 @@ invalidated on EVERY lane-composition change (admission, completion and
 :meth:`BatchServer.cancel`): a stale cache would hand a recycled lane the
 previous request's sampling parameters.
 
-Parking requests off their lanes (``park``/``unpark``) needs the memory
-tiers, which the port does not have yet (ROADMAP item 9).
+Parking: an idle request can be :meth:`BatchServer.park`-ed: a copy of
+its lane's KV slice and its position moves into a
+:class:`~repro_torch.memory.SynapseStore` (warm host memory, cold disk
+under pressure) and the lane frees for other traffic.
+:meth:`BatchServer.unpark` prefetches the slice back on the store's worker
+thread; the request re-enters at the next admission boundary (where nothing
+is in flight, so no undo record spans a park or an unpark) with its exact
+cache bytes and position, and its greedy continuation is unchanged.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import torch
 
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device, to_device
+from repro_torch.memory import SynapseStore
+from repro_torch.memory.store import device_put_fn, ready_on_stream
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -113,10 +121,15 @@ class BatchServer:
         sampling: SamplingParams = SamplingParams(temperature=0.8),
         cache_kind: str = "full",
         seed: int = 0,
+        store: SynapseStore | None = None,
+        wake_deadline_s: float | None = None,
         device=None,
     ):
         """Runs on ``device``, the card unless ``device="cpu"``; ``params``
-        must already be there. Decodes in the config's compute dtype."""
+        must already be there. Decodes in the config's compute dtype.
+        ``store`` holds parked requests (a fresh warm-only store by
+        default); ``wake_deadline_s`` bounds every unpark's promotion unless
+        the call names its own deadline."""
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"the weights are on {params['embed'].device}, the server runs on {self.device}")
@@ -130,13 +143,19 @@ class BatchServer:
         self.positions = np.zeros(n_lanes, np.int64)
         self.queue: list[Request] = []
         self.finished: list[Request] = []
+        # parked requests: lane-less, their KV slice in the store's tiers
+        self.store = store if store is not None else SynapseStore()
+        self.wake_deadline_s = wake_deadline_s
+        self.parked: dict[int, Request] = {}
+        self._resume: list[tuple[Request, object]] = []  # (request, WakeTicket)
+        self._put = device_put_fn(self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._rid = 0
         # per-lane sampling tensors and fast-path flags, rebuilt only when
         # the lane composition changes (see SampCache)
         self._samp_cache = SampCache(self.device)
-        self.stats = {"steps": 0, "overlapped": 0, "rollbacks": 0, "cancelled": 0}
+        self.stats = {"steps": 0, "overlapped": 0, "rollbacks": 0, "lost_requests": 0, "cancelled": 0}
         # serving front-end hooks. ``taps[rid]`` is called as
         # tap(req, chunk, toks, done) when a step's tokens land on the host;
         # chunks are incremental-decoder output, so their concatenation is
@@ -171,9 +190,9 @@ class BatchServer:
             tap(req, tail, [], True)
 
     def cancel(self, rid: int) -> bool:
-        """Retire a queued or decoding request. A freed lane is a
-        composition change, so the samp cache is invalidated. The request
-        finishes with status "cancelled" and is counted."""
+        """Retire a queued, decoding, parked or resuming request. A freed
+        lane is a composition change, so the samp cache is invalidated. The
+        request finishes with status "cancelled" and is counted."""
         req = None
         for i, r in enumerate(self.queue):
             if r.rid == rid:
@@ -186,17 +205,104 @@ class BatchServer:
                     self.lanes[lane] = None
                     self._samp_cache.invalidate()
                     break
+        if req is None and rid in self.parked:
+            req = self.parked.pop(rid)
+            self.store.drop(f"req{rid}")
+        if req is None:
+            for i, (r, _) in enumerate(self._resume):
+                if r.rid == rid:
+                    req = r
+                    self._resume.pop(i)
+                    self.store.drop(f"req{rid}")
+                    break
         if req is None:
             return False
         self.stats["cancelled"] += 1
         self._finish(req, "cancelled")
         return True
 
+    # ------------------------------------------------------------------
+    def park(self, rid: int) -> bool:
+        """Move a decoding request off its lane: a copy of the lane's KV
+        slice and its position go to the store (host memory, spilling to
+        disk by the store's LRU policy) and the lane frees. Call it between
+        steps (nothing in flight). The restore is bitwise, so the request's
+        greedy stream continues where it stopped."""
+        for lane, req in enumerate(self.lanes):
+            if req is not None and req.rid == rid:
+                pos = int(self.positions[lane])
+                snap = {"caches": model_lib.lane_caches(self.caches, lane),
+                        "position": torch.tensor(pos, dtype=torch.int64)}
+                # the meta repeats the position, so the unpark reads it
+                # without waiting for the card
+                self.store.put(f"req{rid}", snap, meta={"kind": "request", "rid": rid, "position": pos})
+                self.lanes[lane] = None
+                req.lane = -1
+                self._samp_cache.invalidate()
+                self.parked[rid] = req
+                return True
+        return False
+
+    def unpark(self, rid: int, *, deadline_s: float | None = None) -> bool:
+        """Start the prefetch of a parked request; it re-enters at the next
+        admission boundary, before queued prompts (it already paid its
+        prefill). ``deadline_s`` (default ``wake_deadline_s``) bounds THIS
+        request's promotion: past it the request fails with a recorded
+        error; every other stream is untouched."""
+        req = self.parked.pop(rid, None)
+        if req is None:
+            return False
+        if deadline_s is None:
+            deadline_s = self.wake_deadline_s
+        self._resume.append((req, self.store.prefetch(f"req{rid}", self._put, deadline_s=deadline_s)))
+        return True
+
+    def _fail_resume(self, req: Request, err: BaseException | None) -> None:
+        """The parked snapshot could not be promoted (quarantined blob,
+        deadline, dead worker): the request finishes with ``error`` set."""
+        self.store.drop(f"req{req.rid}")
+        self.stats["lost_requests"] += 1
+        self._finish(req, "error", repr(err) if err is not None else "wake failed")
+
+    def _admit_unparked(self, *, wait: bool = False):
+        """Land the resume tickets whose prefetch is ready (all of them with
+        ``wait=True``) into free lanes. A failed ticket (loss, deadline, a
+        dead prefetch worker, healed here) retires its request with
+        ``error`` set instead of raising mid-admission."""
+        if self._resume:
+            self.store.heal_worker()
+        still = []
+        for req, ticket in self._resume:
+            ticket.expire()
+            if not ticket.failed():
+                lane = next((i for i, r in enumerate(self.lanes) if r is None), -1)
+                if lane < 0 or not (wait or ticket.ready()):
+                    still.append((req, ticket))
+                    continue
+                if not ticket.ready():
+                    try:
+                        ticket.result(timeout=ticket.remaining())
+                    except Exception:
+                        pass  # the terminal state is recorded on the ticket
+                    ticket.expire()
+            if ticket.failed():
+                self._fail_resume(req, ticket.error)
+                continue
+            part = ready_on_stream(*ticket.result(), self.device)
+            model_lib.write_lane(self.caches, part["caches"], lane)
+            self.positions[lane] = self.store.meta_of(f"req{req.rid}")["position"]
+            req.lane = lane
+            self.lanes[lane] = req
+            self._samp_cache.invalidate()
+            self.store.drop(f"req{req.rid}")
+        self._resume = still
+
     def _admit(self):
         if self.admission_hook is not None:
             # front-end admission control runs at this boundary only: the
             # hook may push into ``queue`` but never touches device state
             self.admission_hook()
+        self._admit_unparked()
         for lane in range(self.n_lanes):
             if self.lanes[lane] is None and self.queue:
                 req = self.queue.pop(0)
@@ -265,7 +371,7 @@ class BatchServer:
         only if the composition provably cannot change: no queued request
         waits for a free lane, and no lane is at its token budget. EOS
         completions stay unpredictable: those cost a rollback instead."""
-        if self.queue and any(r is None for r in self.lanes):
+        if (self.queue or self._resume) and any(r is None for r in self.lanes):
             return False
         for req in self.lanes:
             if req is not None:
@@ -292,7 +398,9 @@ class BatchServer:
         if not pipeline:
             for _ in range(max_ticks):
                 if not self.queue and not any(self.lanes):
-                    break
+                    if not self._resume:
+                        break
+                    self._admit_unparked(wait=True)  # idle: wait for the tickets
                 self.tick()
             return self.finished
 
@@ -302,6 +410,9 @@ class BatchServer:
             if inflight is None:
                 self._admit()
                 if not any(self.lanes):
+                    if self._resume:
+                        self._admit_unparked(wait=True)  # idle: wait for the tickets
+                        continue
                     break
                 inflight = self._step(self._host_toks())
                 ticks += 1

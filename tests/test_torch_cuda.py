@@ -232,3 +232,148 @@ def test_batchserver_pipeline_equals_serial_on_card(card):
     assert outs[0] == outs[1] and len(outs[0]) == 4
     assert stats[0]["rollbacks"] >= 1 and stats[0]["overlapped"] > 0
     assert stats[0]["steps"] == stats[1]["steps"]
+
+
+# ---------------------------------------------------------------------------
+# the memory tiers on the card: hibernate and wake bitwise in bf16, a wake
+# committed inside a sync-guarded window, a cold round trip of device tensors
+# ---------------------------------------------------------------------------
+def _bf16_engine(card, params, cfg, store=None, **kw):
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.sampler import SamplingParams
+
+    return CortexEngine(Prism(params, cfg, device=card), ByteTokenizer(cfg.vocab_size), n_main=2, max_side=2,
+                        main_capacity=128, inject_tokens=8, theta=-1.0, side_max_steps=50,
+                        sampling=SamplingParams(greedy=True), sync_every=4, store=store, device=card, **kw)
+
+
+@pytest.mark.parametrize("tier", ["warm", "cold"])
+def test_hibernate_wake_bitwise_bf16_on_card(card, tier, tmp_path):
+    """A river hibernated, displaced and woken into the other lane, and a
+    side hibernated mid-decode, continue bitwise in bf16 against engines
+    that never hibernated."""
+    from repro_torch.configs import get_config
+    from repro_torch.memory import SynapseStore
+    from repro_torch.models import model as tmodel
+
+    ops.build_kernels()
+    cfg = get_config("qwen2.5-0.5b", reduced=True)
+    assert cfg.compute_dtype == "bfloat16"
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    store = lambda name: SynapseStore(warm_capacity_bytes=1, cold_dir=str(tmp_path / name)) if tier == "cold" else None
+    ref = _bf16_engine(card, params, cfg)
+    m = ref.submit("calm text with no tags at all", lane=0, agent_id="alice")
+    ref._spawn_side(m, "probe the claim")
+    ref.run(48)
+    eng = _bf16_engine(card, params, cfg, store=store("side"))
+    m = eng.submit("calm text with no tags at all", lane=0, agent_id="alice")
+    eng._spawn_side(m, "probe the claim")
+    eng.run(28)
+    eng.hibernate("side0")
+    assert eng.store.tier_of("side0") == tier and eng.state.side_active.device.type == card.type
+    eng.run(4)
+    side = eng.wake("side0", wait=True)
+    eng.run(16)
+    assert side.tokens == ref.sides[0].tokens[: len(side.tokens)] and len(side.tokens) > side.prompt_len + 20
+    assert eng.mains[0].tokens == ref.mains[0].tokens
+
+    ref = _bf16_engine(card, params, cfg)
+    ref.submit("another quiet prompt, still tagless", lane=0, agent_id="bob")
+    ref.run(40)
+    eng = _bf16_engine(card, params, cfg, store=store("river"))
+    eng.submit("another quiet prompt, still tagless", lane=0, agent_id="bob")
+    eng.run(8)
+    eng.hibernate("bob")
+    eng.submit("a displacing resident", lane=0, agent_id="carol")
+    eng.run(4)
+    bob = eng.wake("bob", wait=True)
+    assert bob.lane == 1
+    eng.run(20)
+    assert bob.tokens == ref.mains[0].tokens[: len(bob.tokens)] and len(bob.tokens) > bob.prompt_len + 20
+
+
+def test_wake_commits_inside_a_sync_guarded_window(card, tmp_path):
+    """A cold wake that lands while ``run`` goes on: every window's dispatch
+    and prefetch, every overlapped post-processing and the wake's commit run
+    under set_sync_debug_mode("error") (process-wide, so the prefetch
+    worker's copies are checked too); the stream is the never-hibernated
+    one's."""
+    from repro_torch.configs import get_config
+    from repro_torch.memory import SynapseStore
+    from repro_torch.models import model as tmodel
+
+    cfg = get_config("qwen2.5-0.5b", reduced=True)
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    ref = _bf16_engine(card, params, cfg, max_window=16)
+    ref.submit("calm text with no tags at all", lane=0, agent_id="alice")
+    ref.run(64)
+    eng = _bf16_engine(card, params, cfg, max_window=16,
+                       store=SynapseStore(warm_capacity_bytes=1, cold_dir=str(tmp_path)))
+    eng.submit("calm text with no tags at all", lane=0, agent_id="alice")
+    eng.run(8)
+    eng.hibernate("alice")
+    eng.submit("another quiet prompt, still tagless", lane=0, agent_id="bob")
+    smoke = _smoke()
+    overlapped, commits = [0], [0]
+    smoke.guard_window_no_sync(eng, overlapped)
+    eng._commit_wake = smoke.no_sync(eng._commit_wake, commits)
+    eng.wake("alice")
+    eng.run(48)
+    alice = next(m for m in eng.mains if m.agent_id == "alice")
+    assert commits[0] == 1 and eng.stats["wakes"] == 1 and eng.stats["wake_failures"] == 0
+    assert overlapped[0] > 0
+    assert alice.tokens == ref.mains[0].tokens[: len(alice.tokens)] and len(alice.tokens) > alice.prompt_len + 20
+
+
+def test_cold_round_trip_of_device_tensors(card, tmp_path):
+    """Card tensors (bf16, f32, int32, a strided lane view) through the cold
+    tier come back bitwise, and the prefetch lands them on the card on its
+    own stream, ordered by an event."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.memory import SynapseStore
+    from repro_torch.memory import store as tstore
+
+    g = torch.Generator(device=card).manual_seed(0)
+    full = torch.randn((4, 3, 64, 2, 64), generator=g, device=card).to(torch.bfloat16)
+    snap = {"caches": full[:, 1:2], "hidden": torch.randn(896, generator=g, device=card),
+            "tok": torch.tensor(7, dtype=torch.int32, device=card)}
+    want = ckpt_io.tree_map(lambda t: t.cpu(), snap)
+    store = SynapseStore(warm_capacity_bytes=1, cold_dir=str(tmp_path))
+    store.put("a", snap)
+    full.zero_()  # the store kept a copy, not a view
+    assert store.tier_of("a") == "cold"
+    host = store.get_host("a")
+    for k in want:
+        assert host[k].device.type == "cpu" and ckpt_io.leaf_bytes(host[k]) == ckpt_io.leaf_bytes(want[k])
+    tree, event = store.prefetch("a", tstore.device_put_fn(card)).result(timeout=60)
+    assert isinstance(event, torch.cuda.Event)
+    tree = tstore.ready_on_stream(tree, event, card)
+    for k in want:
+        assert tree[k].device.type == "cuda" and torch.equal(tree[k].cpu(), want[k])
+
+
+@pytest.mark.parametrize("tier", ["warm", "cold"])
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_batchserver_park_unpark_bitwise_on_card(card, pipeline, tier, tmp_path):
+    """A request parked into the store and resumed in the other lane, in
+    bf16: both requests' tokens equal a run that never parked, and every
+    admission of unparked requests runs under set_sync_debug_mode("error")
+    (the resume reads its position from the snapshot's meta, not the
+    card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.memory import SynapseStore
+    from repro_torch.models import model as tmodel
+
+    cfg = get_config("qwen2.5-0.5b", reduced=True)
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    tok = ByteTokenizer(cfg.vocab_size)
+    store = SynapseStore(warm_capacity_bytes=1, cold_dir=str(tmp_path)) if tier == "cold" else SynapseStore()
+    smoke = _smoke()
+    never = smoke.park_run(params, cfg, tok, pipeline)
+    got = smoke.park_run(params, cfg, tok, pipeline, store)
+    assert got["tier"] == tier and got["a_lane"] == 1
+    assert (got["a"], got["b"]) == (never["a"], never["b"])
+    assert got["guarded"] >= 1 and got["in_store"] == 0 and got["stats"]["lost_requests"] == 0

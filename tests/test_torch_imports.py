@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.bridge", "repro_torch.core.engine", "repro_torch.kernels.ops",
             "repro_torch.memory.registry", "repro_torch.serving.server", "repro_torch.serving.frontend",
-            "repro_torch.serving.transport", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.serving.transport", "repro_torch.launch.serve", "repro_torch.checkpoint.io",
+            "repro_torch.memory.store", "repro_torch.memory.faults"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -43,6 +44,42 @@ def test_every_module_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_tiers_run_on_the_card_hosts_packages(tmp_path):
+    """The card's host has no msgpack, zstandard, xxhash, ml_dtypes or JAX:
+    with each of them blocked, every port module imports, and a bf16 lane
+    snapshot goes through the store's cold tier (zlib and crc32 frames) and
+    back bitwise."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("msgpack", "zstandard", "xxhash", "ml_dtypes", "jax", "jaxlib", "repro"):
+            sys.modules[name] = None  # import raises ImportError
+        import importlib, torch
+        for m in {_modules()!r}:
+            importlib.import_module(m)
+        from repro_torch.checkpoint import io
+        from repro_torch.memory import SynapseStore
+        assert io.zstandard is None and io.xxhash is None
+        assert io.default_codec() == io.CODEC_ZLIB
+        g = torch.Generator().manual_seed(0)
+        snap = {{"caches": torch.randn(2, 1, 16, 2, 8, generator=g).to(torch.bfloat16),
+                "tok": torch.tensor(5, dtype=torch.int32), "hidden": torch.randn(8, generator=g)}}
+        store = SynapseStore(warm_capacity_bytes=1, cold_dir={str(tmp_path)!r})
+        store.put("a", snap)
+        assert store.tier_of("a") == "cold"
+        hdr = io.parse_frame_header(open(store._cold_path("a"), "rb").read())
+        assert (hdr["codec"], hdr["hash_id"]) == (io.CODEC_ZLIB, io.HASH_CRC32)
+        fresh = SynapseStore()
+        assert fresh.recover(store.cold_dir)["recovered"] == ["a"]
+        got = fresh.get_host("a")
+        for k, v in snap.items():
+            assert got[k].dtype == v.dtype and io.leaf_bytes(got[k]) == io.leaf_bytes(v)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr
 
 
 def _no_card(monkeypatch):

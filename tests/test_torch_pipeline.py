@@ -342,7 +342,9 @@ def test_mixed_sampling_lanes_inside_adaptive_windows(weights):
 
 def test_identity_hooks_and_refusals(weights):
     """Agent identities in the registry, the stream tap and the admission
-    hook, and the raises where the reference would hibernate."""
+    hook, and the memory tiers where lanes run out: a full house hibernates
+    the least recently bound river, and ``hibernate_idle_ticks`` demotes an
+    idle one."""
     _, _, cfg, params = weights
     eng = CortexEngine(Prism(params, cfg, device="cpu"), ByteTokenizer(cfg.vocab_size), n_main=2,
                        max_side=2, main_capacity=128, inject_tokens=8, theta=-1.0, side_max_steps=6,
@@ -356,20 +358,28 @@ def test_identity_hooks_and_refusals(weights):
         eng.submit("again", lane=1, agent_id="alice")
     b = eng.submit_agent("second agent")
     assert (b.agent_id, b.lane) == ("agent0", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        eng.submit_agent("no lane left")
+    # every lane taken: the LRU river without children (alice has a side)
+    # hibernates to make room
+    c = eng.submit_agent("no lane left")
+    assert (c.agent_id, c.lane) == ("agent1", 1)
+    assert eng.registry.get("agent0").status == "hibernated" and eng.store.tier_of("agent0") == "warm"
     eng.run(16)  # the side is past its 13-token prompt, short of its budget
     assert boundaries and set(boundaries) == {0}  # only with nothing in flight
-    assert ("alice", 4) in taps and ("agent0", 4) in taps
+    assert ("alice", 4) in taps and ("agent1", 4) in taps
     assert any(aid.startswith("side") for aid, _ in taps)
     assert eng.agent_text("alice") == "identity probe [TASK: child]" + eng.tok.decode(a.tokens[a.prompt_len:])
     with pytest.raises(ValueError, match="side streams still target"):
         eng.retire_main(0)
     eng.retire_main(1)
-    assert eng.registry.get("agent0").status == "registered"
+    assert eng.registry.get("agent1").status == "registered"
     assert eng.memory_report()["agents"]["active"] == 2  # alice and her side
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        CortexEngine(eng.prism, eng.tok, hibernate_idle_ticks=4, device="cpu")
+    assert eng.wake("agent0", wait=True).lane == 1  # the evicted river comes back
+    idle = CortexEngine(eng.prism, eng.tok, hibernate_idle_ticks=4, sampling=SamplingParams(greedy=True),
+                        main_capacity=64, max_side=1, sync_every=4, device="cpu")
+    idle.submit("an idle river", lane=0, agent_id="dozer")
+    idle.run(8)
+    assert idle.registry.get("dozer").status == "hibernated" and idle.stats["hibernates"] == 1
+    assert not idle._any_active() and idle.memory_report()["tiers"]["n_warm"] == 1
 
 
 def test_spawn_from_a_later_river_lane_hands_contiguous_keys(weights):
