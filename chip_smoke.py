@@ -61,7 +61,24 @@ Phases, each failing the run on its own failure:
    in process with ``--cold-dir`` and then ``--cold-dir --recover`` over a
    dead process's agent (reduced config). Prints the snapshot and blob
    bytes, the codec, hibernate and wake-to-commit times.
-7. Print the ``kernels`` JSON line, the card's name and power limit, and
+7. The other families. zamba2-1.2b at full width and depth in bf16 (38
+   Mamba2 layers, the shared attention block invoked 6 times): a pipelined
+   CortexEngine whose prompt's three tags spawn three sides (each spawn one
+   ``landmark_score`` sweep over the 6 invocations' stacked cache, each
+   side tick one ``synapse_attention`` launch per invocation), every side
+   merged, every window's dispatch and overlapped post-processing under
+   the sync guard, tick ms, tokens/s, memory and one profiled window; the
+   BatchServer's pipelined loop bitwise its serial one through a rollback;
+   a side and the river hibernated and woken, bitwise a never-hibernated
+   run. Then every other decoder family at its published widths (depth
+   cut where its bf16 weights would not fit or take too long: ``FAMILIES``)
+   — a prefill and 8 greedy steps twice, finite and repeatable, and one
+   spawn and merge through the engine (qwen2-vl, whose M-RoPE decode the
+   engine's ticks do not drive, through the engine's spawn and merge
+   functions), its kernels' launches checked — and one full-size forward
+   of the encoder, hubert-xlarge. Phase 2 also holds both kernels at these
+   families' (H, Hkv, D) and times them at zamba2's shapes.
+8. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
@@ -96,6 +113,13 @@ TEST_SHAPES = [  # B, H, Hkv, D, T of the kernel tests, and one wide group
     (2, 8, 2, 64, 1), (2, 8, 2, 64, 33),  # one key; two ranges and a ragged tile
     (2, 16, 8, 64, 4096),  # Hkv = 8 at the longest T
 ]
+# the other families' (H, Hkv, D): zamba2's shared MHA block (side decode
+# and spawn; B = 6 invocations x 1 parent lane), qwen3-moe, qwen3-4b/8b,
+# qwen2-vl-72b / qwen1.5-110b; T = K + W + J of a side decode, or a spawn's
+SYN_ZAMBA = (MAIN["max_side"], 32, 32, 64, 64 + 64 + 16)
+LM_ZAMBA = (6, 32, 32, 64, MAIN["main_capacity"])
+FAMILY_SHAPES = [SYN_ZAMBA, LM_ZAMBA, (8, 32, 4, 128, 144), (48, 32, 4, 128, 1024), (8, 32, 8, 128, 144),
+                 (36, 32, 8, 128, 1024), (8, 64, 8, 128, 144), (8, 64, 8, 128, 1024)]
 # The kernels' times before their redesign, main-path shapes, bf16, L2
 # flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
 EARLIER_MS = {"synapse_attention": 0.0820, "landmark_score": 0.0592}
@@ -199,7 +223,7 @@ def check_kernels(dev):
     worst = {"synapse_attention": 0.0, "landmark_score": 0.0}
     # the main side-decode shape again, with the last CTA's range of lane 0
     # and all of lane 1 invalid
-    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES] + [(SYN_MAIN, "invalid")]
+    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES + FAMILY_SHAPES] + [(SYN_MAIN, "invalid")]
     for shape, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             t = dict(rtol=TOL[dtype], atol=TOL[dtype])
@@ -268,6 +292,27 @@ def check_kernels(dev):
         **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
         shape=list(LM_MAIN), dtype="bfloat16",
     )
+    # the same at zamba2's shapes (its shared block: H = Hkv = 32, D = 64)
+    B, H, Hkv, D, T = SYN_ZAMBA
+    q, k, v, valid, _ = inputs(SYN_ZAMBA, torch.bfloat16)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    recs["synapse_attention"]["zamba2"] = dict(
+        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
+        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
+        shape=list(SYN_ZAMBA), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
+    B, H, Hkv, D, T = LM_ZAMBA
+    q, k, _, _, _ = inputs(LM_ZAMBA, torch.bfloat16)
+    qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
+    recs["landmark_score"]["zamba2"] = dict(
+        ms=time_ms(lambda: ls.landmark_score(q, k)),
+        plain_ms=time_ms(lambda: ref.landmark_score_ref(q, k)),
+        library_ms=time_ms(lambda: torch.matmul(qg, kt)),
+        **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
+        shape=list(LM_ZAMBA), plan=str(ls.launch_plan(B, T, H, Hkv, D, 0, 2)))
     for r in recs.values():
         log("kernel " + json.dumps(r))
     return recs
@@ -336,15 +381,26 @@ def profile_window(eng):
     }))
 
 
-def check_launches(label: str, counts: dict, spawns: int, n_layers: int, side_ticks: int):
-    """One ``landmark_score`` launch per spawn, one ``synapse_attention``
-    launch per layer in every tick that stepped the side lanes."""
-    if counts["landmark_score"] != spawns:
-        raise AssertionError(f"{label}: landmark_score launched {counts['landmark_score']} times "
-                             f"for {spawns} spawns")
-    if counts["synapse_attention"] != n_layers * side_ticks:
-        raise AssertionError(f"{label}: synapse_attention launched {counts['synapse_attention']} times, "
-                             f"expected {n_layers} x {side_ticks} side ticks")
+def kernel_plan(cfg) -> tuple[int, int]:
+    """(landmark_score launches per spawn, synapse_attention launches per
+    tick that steps the side lanes): one sweep per stacked full attention
+    cache (a GQA group, the hybrid's shared stack), one attend per GQA layer
+    and shared invocation. Recurrent states and MLA latents are copied at a
+    spawn and decoded without a kernel, as in the reference."""
+    gqa_groups = [g for g in cfg.layer_groups() if g.kind == "attn" and cfg.attn_kind == "gqa"]
+    shared = cfg.n_shared_attn_invocations
+    return len(gqa_groups) + (1 if shared else 0), sum(g.count for g in gqa_groups) + shared
+
+
+def check_launches(label: str, counts: dict, cfg, spawns: int, side_ticks: int):
+    """The launches ``kernel_plan(cfg)`` implies for the spawns and side
+    ticks of a run (for the paper's model: one ``landmark_score`` launch
+    per spawn, one ``synapse_attention`` launch per layer and side tick)."""
+    per_spawn, per_tick = kernel_plan(cfg)
+    want = {"landmark_score": per_spawn * spawns, "synapse_attention": per_tick * side_ticks}
+    if counts != want:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected {want} "
+                             f"({spawns} spawns, {side_ticks} side ticks)")
 
 
 def drive_main_path(card: str) -> dict:
@@ -356,7 +412,7 @@ def drive_main_path(card: str) -> dict:
     torch.cuda.synchronize()
     log(f"main path: {cfg.name} L={cfg.n_layers} d_model={cfg.d_model} vocab={cfg.vocab_size} "
         f"compute={eng.cfg.compute_dtype} set up in {time.perf_counter() - t0:.1f} s")
-    n_layers, W = cfg.n_layers, eng.sync_every
+    W = eng.sync_every
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launches()
@@ -404,7 +460,7 @@ def drive_main_path(card: str) -> dict:
         raise AssertionError("sides still live after 64 windows")
     if not spawns or not any(m["accepted"] for m in merges):
         raise AssertionError(f"expected a spawn and an accepted merge, history={eng.history}")
-    check_launches("main path", counts, len(spawns), n_layers, side_ticks)
+    check_launches("main path", counts, cfg, len(spawns), side_ticks)
     hidden = eng.state.main_hidden
     if not torch.isfinite(hidden).all() or hidden.shape != (1, cfg.d_model):
         raise AssertionError("river hidden state is not finite / of the expected shape")
@@ -556,7 +612,7 @@ def _cortex_mode(prism, tok, card: str) -> dict:
         raise AssertionError("cortex mode: no drain overlapped the next window")
     if max(eng.stats["window_hist"]) <= eng.sync_every:
         raise AssertionError(f"cortex mode: no window longer than sync_every: {eng.stats['window_hist']}")
-    check_launches("cortex mode", counts, events.count("spawn"), eng.cfg.n_layers, side_ticks)
+    check_launches("cortex mode", counts, eng.cfg, events.count("spawn"), side_ticks)
     if any(r.stream.text != tok.decode(streams[r.backend_id]) for r in fe.requests.values()):
         raise AssertionError("cortex mode: a request's stream is not the decode of its tokens")
     _serving_summary(
@@ -849,7 +905,7 @@ def _tier_run(prism, tok, mode: str, store=None) -> dict:
         streams[aid] = next(list(s.tokens) for s in eng.sides if s.agent_id == aid)
     out.update(
         mode=mode, streams=streams, records=_spawns_and_merges(eng.history), alice_at_merge=min(at_merge),
-        launches=ops.launch_counts(), side_ticks=probe.side_ticks, n_layers=eng.cfg.n_layers,
+        launches=ops.launch_counts(), side_ticks=probe.side_ticks,
         spawns=sum(e["event"] == "spawn" for e in eng.history), wake_lanes=wakes, guarded_commits=guarded[0],
         cold_wake_to_commit_ms={aid: probe.wake_split(aid, woken_at[aid]) for aid in woken_at},
         gate_scores=[e["gate_score"] for e in eng.history if e["event"] == "merge"])
@@ -961,7 +1017,7 @@ def _drive_tiers(card: str, root: Path, t0: float) -> dict:
     }
     if not all(checks.values()):
         raise AssertionError(f"tiers (delayed wake): {checks}")
-    check_launches("tiers", delayed["launches"], delayed["spawns"], delayed["n_layers"], delayed["side_ticks"])
+    check_launches("tiers", delayed["launches"], cfg, delayed["spawns"], delayed["side_ticks"])
     gc.collect()
 
     # kill and restart: bob hibernated warm and woken, hibernated again and
@@ -1060,6 +1116,358 @@ def _drive_tiers(card: str, root: Path, t0: float) -> dict:
     return delayed["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the other families
+# ---------------------------------------------------------------------------
+FAMILY_MAIN = dict(n_main=1, max_side=8, main_capacity=1024, sync_every=8, max_window=32, theta=-1.0)
+# at most ssm_chunk = 128 tokens with the BOS: a Mamba2 prefill takes a
+# prompt of at most one chunk or a multiple of it, as in the reference
+ZAMBA_PROMPT = ("The river thinks aloud. [TASK: list the open questions] [TASK: check the claim] "
+                "[TASK: sum up the context] Go on.")
+FAMILY_PROMPT = "A short river. [TASK: check it] Then on."
+# (arch, layers run): every decoder family but the paper's model and zamba2,
+# at its published widths; full depth where the bf16 weights leave room on
+# the card, else cut (the cut's bytes: qwen3-moe 61 GB at full depth,
+# qwen2-vl 145 GB, qwen1.5 222 GB, deepseek-v2 510 GB)
+FAMILIES = [("rwkv6-1.6b", None), ("qwen3-4b", None), ("qwen3-8b", None), ("smollm-135m", None),
+            ("qwen3-moe-30b-a3b", 12), ("qwen2-vl-72b", 8), ("qwen1.5-110b", 6), ("deepseek-v2-236b", 3)]
+ENCODER = "hubert-xlarge"
+FAMILY_DECODE_STEPS = 8
+
+
+def _count_side_ticks(eng) -> list:
+    """Wrap the engine's window dispatch: the returned one-item list counts
+    the ticks of windows dispatched with a side lane live (host mirrors)."""
+    side_ticks, dispatch = [0], eng._dispatch_window
+
+    def counted(n):
+        side_ticks[0] += n if any(s.active for s in eng.sides) else 0
+        dispatch(n)
+    eng._dispatch_window = counted
+    return side_ticks
+
+
+def _family_engine(prism, tok, **kw):
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.serving.sampler import SamplingParams
+
+    return CortexEngine(prism, tok, sampling=SamplingParams(greedy=True), **{**FAMILY_MAIN, **kw})
+
+
+def _zamba_tier_run(prism, tok, hibernate: bool) -> dict:
+    """The phase-7 engine to the sides' merges and 16 ticks on; with
+    ``hibernate``, one side mid-decode and later the river (its sides
+    merged) go to the store and wake at the same boundary."""
+    eng = _family_engine(prism, tok)
+    eng.submit(ZAMBA_PROMPT, lane=0, agent_id="river")
+    eng.run(24)
+    if hibernate:
+        side = next(s for s in eng.sides if s.active)
+        eng.hibernate(side.agent_id)
+        eng.wake(side.agent_id, wait=True)
+    for _ in range(64):
+        if not any(s.active for s in eng.sides):
+            break
+        eng.run(eng.sync_every)
+    if hibernate:
+        eng.hibernate("river")
+        eng.wake("river", wait=True)
+    eng.run(16)
+    eng.drain()
+    return {"streams": {v.agent_id: list(v.tokens) for v in eng.mains + eng.sides},
+            "records": _spawns_and_merges(eng.history), "wakes": eng.stats["wakes"]}
+
+
+def drive_zamba2(card: str) -> dict:
+    """Phase 7a: zamba2-1.2b at full width and depth in bf16 through the
+    Cortex main path; then the BatchServer and the memory tiers on it.
+    Returns the launch counts of the main run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as tm
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.server import BatchServer
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), param_dtype="bfloat16")
+    tok = ByteTokenizer(cfg.vocab_size)
+    if len(tok.encode(ZAMBA_PROMPT, bos=True)) > cfg.ssm_chunk:
+        raise AssertionError("the zamba2 prompt is longer than one Mamba2 chunk")
+    prism = Prism(tm.init_params(cfg, seed=0), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _family_engine(prism, tok)
+    guarded = [0]
+    guard_window_no_sync(eng, guarded)
+    side_ticks = _count_side_ticks(eng)
+    log(f"zamba2: L={cfg.n_layers} mamba2 + {cfg.n_shared_attn_invocations} shared-attention invocations "
+        f"d_model={cfg.d_model} H=Hkv={cfg.n_heads} D={cfg.d_head} vocab={cfg.vocab_size} "
+        f"compute={eng.cfg.compute_dtype} weights {prism.weight_bytes() / 1e9:.3f} GB {FAMILY_MAIN}")
+    ops.reset_launches()
+    eng.submit(ZAMBA_PROMPT, lane=0)
+    spawned = sum(s.active for s in eng.sides)
+    eng.run(eng.sync_every)
+    # windows until every side has merged: the first TIMED_WINDOWS timed
+    # (the first of them warm-up), the next one under torch.profiler (its
+    # tracing slows what follows it, so nothing after it is timed)
+    window_s, window_tokens, profiled = [], [], False
+    for i in range(64):
+        if not any(s.active for s in eng.sides):
+            break
+        if i == TIMED_WINDOWS:
+            profile_window(eng)
+            profiled = True
+            continue
+        before = sum(len(v.tokens) for v in eng.mains + eng.sides)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.macro_tick()
+        torch.cuda.synchronize()
+        if i < TIMED_WINDOWS:
+            window_s.append(time.perf_counter() - t)
+            window_tokens.append(sum(len(v.tokens) for v in eng.mains + eng.sides) - before)
+    # the river alone: drains overlap the next window (their
+    # post-processing runs under the sync guard)
+    eng.run(4 * eng.sync_every)
+    eng.drain()
+    counts = ops.launch_counts()
+    events = [e["event"] for e in eng.history]
+    if not profiled or any(s.active for s in eng.sides):
+        raise AssertionError(f"zamba2: profiled={profiled}, sides live after 64 windows")
+    if spawned < 3 or events.count("spawn") < 3 or events.count("merge") < 3:
+        raise AssertionError(f"zamba2: expected 3 spawns and 3 merges, history={events}")
+    if guarded[0] == 0 or eng.stats["overlapped_drains"] == 0:
+        raise AssertionError("zamba2: no overlapped post-processing ran under the sync guard")
+    check_launches("zamba2", counts, eng.cfg, events.count("spawn"), side_ticks[0])
+    hidden = eng.state.main_hidden
+    if not torch.isfinite(hidden).all() or hidden.shape != (1, cfg.d_model):
+        raise AssertionError("zamba2: river hidden state is not finite / of the expected shape")
+    steady = window_s[1:]
+    main = {
+        "zamba2": cfg.name, "card": card, "spawns": events.count("spawn"), "merges": events.count("merge"),
+        "accepted": sum(e.get("accepted", False) for e in eng.history),
+        "gate_scores": [round(e["gate_score"], 4) for e in eng.history if e["event"] == "merge"],
+        "side_ticks": side_ticks[0], "windows_timed": len(steady),
+        "tick_ms": statistics.median(steady) / eng.sync_every * 1e3,
+        "tokens_per_s": sum(window_tokens[1:]) / sum(steady),
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "weight_bytes": prism.weight_bytes(), "launches": counts,
+        "guarded_overlapped": guarded[0], "overlapped_drains": eng.stats["overlapped_drains"],
+    }
+    del eng
+    gc.collect()
+
+    # the BatchServer on zamba2: pipelined == serial, bitwise, through a
+    # surprise-EOS rollback (the EOS id is a token the model emits greedily)
+    reqs = [("first request", 24), ("a second, longer request", 16), ("third", 20), ("the fourth request", 12)]
+    srv = BatchServer(prism.params, cfg, tok, n_lanes=4, capacity=256, sampling=SamplingParams(greedy=True))
+    srv.submit(reqs[0][0], max_new_tokens=8)
+    probe = srv.run_until_done(pipeline=False)[0]
+    tok_eos = ByteTokenizer(cfg.vocab_size)
+    tok_eos.eos_id = probe.tokens[probe.prompt_len + 3]
+    outs = []
+    for pipeline in (True, False):
+        srv = BatchServer(prism.params, cfg, tok_eos, n_lanes=4, capacity=256, sampling=SamplingParams(greedy=True))
+        for prompt, n in reqs:
+            srv.submit(prompt, max_new_tokens=n)
+        t = time.perf_counter()
+        done = srv.run_until_done(pipeline=pipeline)
+        torch.cuda.synchronize()
+        outs.append((sorted((r.rid, tuple(r.tokens), r.status) for r in done), dict(srv.stats),
+                     time.perf_counter() - t))
+    if outs[0][0] != outs[1][0] or outs[0][1]["rollbacks"] < 1:
+        raise AssertionError(f"zamba2 BatchServer: pipelined != serial or no rollback ({outs[0][1]})")
+    batch = {"rollbacks": outs[0][1]["rollbacks"], "overlapped": outs[0][1]["overlapped"],
+             "steps": outs[0][1]["steps"], "pipelined_s": outs[0][2], "serial_s": outs[1][2]}
+    del srv
+    gc.collect()
+
+    # hibernate and wake one side and the river: bitwise the never-hibernated run
+    ref = _zamba_tier_run(prism, tok, hibernate=False)
+    got = _zamba_tier_run(prism, tok, hibernate=True)
+    if got["streams"] != ref["streams"] or got["records"] != ref["records"] or got["wakes"] != 2:
+        raise AssertionError("zamba2 tiers: the hibernated run differs from the never-hibernated one")
+    log(json.dumps({**main, "batchserver": batch, "hibernate_wake_bitwise": True,
+                    "phase_s": time.perf_counter() - t0}))
+    del prism
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _greedy_decode(params, cfg, prompt_ids, steps: int):
+    """Prefill and ``steps`` greedy decode steps on one lane (M-RoPE:
+    [1, 3, S] positions). Returns (tokens, every step's logits finite)."""
+    from repro_torch.models import model as tm
+
+    dev = params["final_norm"].device
+    S = len(prompt_ids)
+    spec = tm.CacheSpec(kind="full", capacity=S + steps + 1)
+    caches = tm.init_caches(cfg, 1, spec, device=dev)
+    inputs = {"tokens": torch.tensor([prompt_ids], dtype=torch.int32, device=dev)}
+    mrope = cfg.rope_kind == "mrope"
+    if mrope:
+        inputs["positions"] = torch.arange(S, dtype=torch.int32, device=dev)[None, None].expand(1, 3, S)
+    logits, _, caches = tm.prefill(params, cfg, inputs, caches, spec=spec)
+    finite, out = bool(torch.isfinite(logits).all()), []
+    for t in range(steps):
+        nxt = logits.argmax(-1).to(torch.int32)
+        out.append(nxt)
+        pos = torch.full((1, 3) if mrope else (1,), S + t, dtype=torch.int32, device=dev)
+        logits, _, caches = tm.decode_step(params, cfg, {"tokens": nxt, "positions": pos}, caches, spec=spec)
+        finite &= bool(torch.isfinite(logits).all())
+    return torch.cat(out).tolist(), finite
+
+
+def _mrope_spawn_merge(prism, cfg, tok) -> dict:
+    """The engine's own spawn and merge functions on an M-RoPE model, which
+    the engine's ticks cannot drive (one position per lane, as in the
+    reference): prefill a river, compress its lane into a side's synapse
+    caches (landmark_score), decode the side 8 steps over them
+    (synapse_attention), and merge the side's tokens back."""
+    from repro_torch.core import engine as te
+    from repro_torch.core import injection
+    from repro_torch.models import model as tm
+
+    params = tm.cast_params(prism.params, cfg)
+    dev = prism.device
+    ids = tok.encode(FAMILY_PROMPT, bos=True)
+    S = len(ids)
+    main_spec = tm.CacheSpec(kind="full", capacity=256)
+    side_spec = tm.CacheSpec(kind="synapse", n_landmarks=64, window=64, n_inject=16)
+    main = tm.init_caches(cfg, 1, main_spec, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None, None].expand(1, 3, S)
+    _, hidden, main = tm.prefill(params, cfg, {"tokens": torch.tensor([ids], dtype=torch.int32, device=dev),
+                                               "positions": pos}, main, spec=main_spec)
+    side = tm.init_caches(cfg, 1, side_spec, device=dev)
+    tm.write_lane(side, te.spawn_caches(cfg, tm.lane_caches(main, 0), side_spec), 0)
+    tokens = torch.tensor([ids[-1]], dtype=torch.int32, device=dev)
+    out = []
+    for t in range(FAMILY_DECODE_STEPS):
+        p = torch.full((1, 3), S + t, dtype=torch.int32, device=dev)
+        logits, _, side = tm.decode_step(params, cfg, {"tokens": tokens, "positions": p}, side, spec=side_spec)
+        tokens = logits.argmax(-1).to(torch.int32)
+        out.append(tokens)
+    thought = torch.cat(out)[None]
+    _, accept, score = injection.merge_thought(params, cfg, main, hidden.float(), thought,
+                                               torch.tensor([S], dtype=torch.int32, device=dev),
+                                               torch.ones(1, dtype=torch.bool, device=dev), -1.0)
+    if not bool(accept[0]) or int(main.groups[0].length[0, 0]) != S + FAMILY_DECODE_STEPS:
+        raise AssertionError("qwen2-vl: the merge was not injected")
+    return {"spawns": 1, "side_ticks": FAMILY_DECODE_STEPS, "gate_score": float(score[0])}
+
+
+def drive_family(arch: str, depth, card: str) -> dict:
+    """Phase 7b, one family at its published widths (bf16 weights from seed
+    0, ``depth`` layers if cut): a prefill and FAMILY_DECODE_STEPS greedy
+    steps twice (finite logits, the same tokens), then one spawn and merge
+    through the engine, its kernels' launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as tm
+
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, param_dtype="bfloat16", n_layers=depth or full.n_layers)
+    prism = Prism(tm.init_params(cfg, seed=0), cfg)
+    tok = ByteTokenizer(cfg.vocab_size)
+    params = tm.cast_params(prism.params, cfg)
+    ids = tok.encode(FAMILY_PROMPT, bos=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_greedy_decode(params, cfg, ids, FAMILY_DECODE_STEPS) for _ in range(2)]
+    if not (runs[0][1] and runs[1][1]) or runs[0][0] != runs[1][0]:
+        raise AssertionError(f"{arch}: non-finite logits or greedy decode not repeatable: {runs}")
+    ops.reset_launches()
+    t = time.perf_counter()
+    if cfg.rope_kind == "mrope":
+        path = "engine functions (spawn_caches, decode_step, merge_thought)"
+        res = _mrope_spawn_merge(prism, cfg, tok)
+        spawns, merges, side_ticks = res["spawns"], 1, res["side_ticks"]
+        gates = [res["gate_score"]]
+    else:
+        path = "CortexEngine"
+        eng = _family_engine(prism, tok, max_side=1, side_max_steps=FAMILY_DECODE_STEPS, inject_tokens=8,
+                             main_capacity=256)
+        guard_window_no_sync(eng)
+        counted = _count_side_ticks(eng)
+        eng.submit(FAMILY_PROMPT, lane=0)
+        for _ in range(32):
+            if not any(s.active for s in eng.sides):
+                break
+            eng.run(eng.sync_every)
+        eng.drain()
+        events = [e["event"] for e in eng.history]
+        spawns, merges, side_ticks = events.count("spawn"), events.count("merge"), counted[0]
+        gates = [e["gate_score"] for e in eng.history if e["event"] == "merge"]
+        if not torch.isfinite(eng.state.main_hidden).all():
+            raise AssertionError(f"{arch}: the river's hidden state is not finite")
+        del eng
+        gc.collect()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if spawns != 1 or merges != 1:
+        raise AssertionError(f"{arch}: {spawns} spawns and {merges} merges, expected one each")
+    check_launches(arch, counts, cfg, spawns, side_ticks)
+    rec = {"family": arch, "card": card, "layers": cfg.n_layers, "of_layers": full.n_layers,
+           "weight_bytes": prism.weight_bytes(), "path": path, "greedy_tokens": runs[0][0],
+           "spawn_merge_s": time.perf_counter() - t, "side_ticks": side_ticks, "gate_scores": gates,
+           "launches": counts, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec))
+    del prism, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def drive_encoder(card: str):
+    """Phase 7c: hubert-xlarge, encoder-only, one full-size forward over
+    frame embeddings (its only entry point), twice: finite and repeatable."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ENCODER), param_dtype="bfloat16")
+    params = tm.init_params(cfg, seed=0)
+    dev = params["final_norm"].device
+    emb = torch.randn((2, 1000, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, aux = tm.forward(params, cfg, {"embeds": emb})
+        torch.cuda.synchronize()
+        outs.append((logits, time.perf_counter() - t))
+    logits = outs[0][0]
+    if logits.shape != (2, 1000, cfg.vocab_size) or not torch.isfinite(logits).all() \
+            or not torch.equal(logits, outs[1][0]):
+        raise AssertionError(f"{ENCODER}: logits {tuple(logits.shape)} not finite or not repeatable")
+    log(json.dumps({"encoder": cfg.name, "card": card, "layers": cfg.n_layers, "frames": 1000, "batch": 2,
+                    "forward_s": outs[1][1], "phase_s": time.perf_counter() - t0}))
+    del params, outs, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_families(card: str) -> dict:
+    """Phase 7: zamba2 at full width and depth, every other decoder family
+    at its published widths, the encoder. Returns the kernels' launches
+    on zamba2's main run and summed over the other families."""
+    zamba = drive_zamba2(card)
+    others = {"landmark_score": 0, "synapse_attention": 0}
+    for arch, depth in FAMILIES:
+        for k, v in drive_family(arch, depth, card).items():
+            others[k] += v
+    drive_encoder(card)
+    return {"zamba2": zamba, "families": others}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1086,12 +1494,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tiers = drive_tiers(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = drive_families(card)
 
     kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
-                    tiers_launches=tiers[name]) for name in ops.KERNELS]
+                    tiers_launches=tiers[name], zamba2_launches=families["zamba2"][name],
+                    families_launches=families["families"][name]) for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)
+        for key in ("bytes", "flops", "plan"):
+            k["zamba2"].pop(key)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,19 @@
 through numpy only (this module imports neither ``jax`` nor ``repro``).
 
 * :func:`params_from_jax` turns the JAX ``init_params`` pytree — given as
-  numpy arrays: ``embed``, ``groups[g]`` stacked on a leading layer axis,
-  ``final_norm``, and ``head`` unless embeddings are tied — into the
-  port's parameter dict. The layouts are the same, so it is leaf by leaf.
-* :func:`caches_from_numpy` / :func:`caches_to_numpy` convert ``FullCache``,
-  ``SynapseCache`` and ``ModelCaches`` both ways. The numpy side is any
-  object with the reference's field names (a JAX cache dataclass whose
-  leaves went through ``np.asarray``) or a dict of them, so a port step can
-  start from a reference state.
+  numpy arrays: ``embed`` (not for the encoder-only model), ``groups[g]``
+  stacked on a leading layer axis (attention with GQA or MLA, dense, MoE
+  with its experts and shared experts, Mamba2, RWKV6), ``shared_attn``
+  (the hybrid's shared block with its stacked LoRA), ``final_norm``, and
+  ``head`` unless embeddings are tied — into the port's parameter dict.
+  The layouts are the same, so it is leaf by leaf.
+* :func:`caches_from_numpy` / :func:`caches_to_numpy` convert every cache
+  kind (``FullCache``, ``SynapseCache``, ``MLACache``, ``Mamba2State``,
+  ``RWKV6State``) and ``ModelCaches`` — its groups and its ``shared``
+  caches — both ways. The numpy side is any object with the reference's
+  field names (a JAX cache dataclass whose leaves went through
+  ``np.asarray``) or a dict of them, so a port step can start from a
+  reference state.
 
 Every conversion is bitwise: bf16 leaves go through f32, which holds every
 bf16 value exactly.
@@ -47,7 +52,10 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     """The JAX params pytree (numpy leaves) -> the port's params on
     ``device`` (None: the card, raising where there is none). Checks the
     tree's keys against what ``cfg`` needs."""
-    want = {"embed", "groups", "final_norm"} | (set() if cfg.tie_embeddings else {"head"})
+    want = {"groups", "final_norm"}
+    want |= {"embed"} if cfg.embed_inputs or not cfg.is_encoder_only else set()
+    want |= set() if cfg.tie_embeddings else {"head"}
+    want |= {"shared_attn"} if cfg.shared_attn_every > 0 else set()
     if set(np_tree) != want:
         raise ValueError(f"params tree has keys {sorted(np_tree)}, config {cfg.name} needs {sorted(want)}")
     if len(np_tree["groups"]) != len(cfg.layer_groups()):
@@ -66,12 +74,17 @@ def _fields(obj) -> dict:
     return {f: getattr(obj, f) for f in obj.__dataclass_fields__}
 
 
+# the field that tells each cache kind apart, in the reference's layout
+_KINDS = (("lm_k", cache_lib.SynapseCache), ("ckv", cache_lib.MLACache), ("ssm", cache_lib.Mamba2State),
+          ("wkv", cache_lib.RWKV6State), ("k", cache_lib.FullCache))
+
+
 def cache_from_numpy(obj, device=None):
-    """One FullCache / SynapseCache from numpy fields (object or dict), on
+    """One cache of any kind from numpy fields (object or dict), on
     ``device`` (None: the card)."""
     dev = resolve_device(device)
     fields = _fields(obj)
-    cls = cache_lib.SynapseCache if "lm_k" in fields else cache_lib.FullCache
+    cls = next(c for key, c in _KINDS if key in fields)
     names = [f.name for f in dataclasses.fields(cls)]
     return cls(**{n: to_torch(fields[n], dev) for n in names})
 
@@ -81,14 +94,15 @@ def cache_to_numpy(cache) -> dict:
 
 
 def caches_from_numpy(obj, device=None) -> model_lib.ModelCaches:
-    """ModelCaches from an object or dict with ``groups`` (and ``shared``,
-    which must be None in this slice), on ``device`` (None: the card)."""
+    """ModelCaches from an object or dict with ``groups`` and ``shared``
+    (None outside the hybrid), on ``device`` (None: the card)."""
     dev = resolve_device(device)
     fields = _fields(obj)
-    if fields.get("shared") is not None:
-        raise NotImplementedError("shared-attention caches are ROADMAP queue-1 item 13")
-    return model_lib.ModelCaches(groups=tuple(cache_from_numpy(g, dev) for g in fields["groups"]))
+    shared = fields.get("shared")
+    return model_lib.ModelCaches(groups=tuple(cache_from_numpy(g, dev) for g in fields["groups"]),
+                                 shared=None if shared is None else cache_from_numpy(shared, dev))
 
 
 def caches_to_numpy(caches: model_lib.ModelCaches) -> dict:
-    return {"groups": [cache_to_numpy(g) for g in caches.groups], "shared": None}
+    return {"groups": [cache_to_numpy(g) for g in caches.groups],
+            "shared": None if caches.shared is None else cache_to_numpy(caches.shared)}

@@ -1,0 +1,16 @@
+"""Qwen3-4B [hf:Qwen/Qwen3-8B family] — dense GQA, qk_norm, head_dim 128."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b",
+    arch_type="dense",
+    n_layers=36,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=9728,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)

@@ -87,22 +87,24 @@ from repro_torch.serving.sampler import (
 
 def _lane_slice(caches: model_lib.ModelCaches, lane: int) -> list:
     """Views of one batch lane's tensors (axis 1; axis 0 is the stacked
-    layer dim)."""
-    return [a[:, lane] for c in caches.groups for a in cache_lib.tensors(c)]
+    layer dim), the shared caches included."""
+    return [a[:, lane] for a in caches.tensors()]
 
 
 def spawn_caches(cfg: ModelConfig, main_caches: model_lib.ModelCaches, spec: model_lib.CacheSpec):
-    """Compress a main agent's caches into fresh side-agent synapse caches.
+    """Compress a main agent's caches into fresh side-agent caches.
 
-    Hybrid landmark compression with the density term from the
-    ``landmark_score`` kernel. The paper's Q_t (the parent's current query)
-    is approximated by the newest resident key, broadcast to the query
-    heads, as in the reference. The stacked layer axis is folded into the
-    batch axis, so every layer compresses in ONE kernel launch.
+    Attention full caches (the groups' and the hybrid's shared ones): hybrid
+    landmark compression with the density term from the ``landmark_score``
+    kernel. The paper's Q_t (the parent's current query) is approximated by
+    the newest resident key, broadcast to the query heads, as in the
+    reference. The stacked layer (or invocation) axis is folded into the
+    batch axis, so a stack compresses in ONE kernel launch. Recurrent
+    states and MLA latent caches are handed over as they are, as the
+    reference does (the side lane receives a copy when it is written).
     """
-    return model_lib.ModelCaches(groups=tuple(
-        _compress_stacked(cfg, c, spec) for c in main_caches.groups
-    ))
+    return main_caches.map(
+        lambda c: _compress_stacked(cfg, c, spec) if isinstance(c, cache_lib.FullCache) else c)
 
 
 def _compress_stacked(cfg: ModelConfig, c: cache_lib.FullCache, spec: model_lib.CacheSpec):
@@ -356,6 +358,7 @@ class CortexEngine:
             raise ValueError(f"the Prism's weights are on {prism.device}, the engine runs on {self.device}")
         self.prism = prism
         cfg = prism.cfg
+        model_lib.check_servable(cfg, "CortexEngine")
         if compute_dtype is None and cfg.compute_dtype == "bfloat16" and self.device.type == "cpu":
             compute_dtype = "float32"
         if compute_dtype is not None:

@@ -3,9 +3,11 @@
 A side agent's accepted thought is encoded by a forward pass with the shared
 weights, and its per-layer K/V are appended to the main agent's caches at
 *virtual* RoPE positions: the main stream's tokens and positions are
-untouched. Full caches receive the K/V at the write cursor, synapse caches
-in their ``inj_*`` slots. Port of the JAX package's ``repro.core.injection``
-for attention groups; the main caches are updated IN PLACE.
+untouched. Full and MLA caches receive the K/V at the write cursor,
+synapse caches in their ``inj_*`` slots. For attention-free layers
+(RWKV6, Mamba2 state) injection is a *state blend*: the thought's terminal
+recurrent state is mixed into the main state. Port of the JAX package's
+``repro.core.injection``; the main caches are updated IN PLACE.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from repro_torch.core import gate as gate_lib
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
+
+BLEND_BETA = 0.3  # weight of the thought's state in a blend, as in the reference
 
 
 def encode_thought_kv(params, cfg: ModelConfig, thought_tokens, virtual_pos):
@@ -26,6 +30,8 @@ def encode_thought_kv(params, cfg: ModelConfig, thought_tokens, virtual_pos):
     """
     B, T = thought_tokens.shape
     positions = virtual_pos[:, None] + torch.arange(T, dtype=torch.int32, device=thought_tokens.device)[None, :]
+    if cfg.rope_kind == "mrope":
+        positions = positions[:, None, :].expand(B, 3, T)
     spec = model_lib.CacheSpec(kind="full", capacity=T)
     caches = model_lib.init_caches(cfg, B, spec, device=thought_tokens.device)
     _, hidden, caches = model_lib.prefill(
@@ -77,14 +83,43 @@ def inject_synapse(main: cache_lib.SynapseCache, thought: cache_lib.FullCache, a
     return main
 
 
+def inject_mla(main: cache_lib.MLACache, thought: cache_lib.MLACache, accept):
+    """Append the thought's latents into a stacked MLACache group, in place
+    (the start clamped as in :func:`inject_full`)."""
+    S, T = main.ckv.shape[2], thought.ckv.shape[2]
+    start = torch.clamp(main.length[0], max=S - T)
+    for f in ("ckv", "krope", "score"):
+        _append_lanes(getattr(main, f), getattr(thought, f), start, accept)
+    main.length.copy_(torch.where(accept, main.length + T, main.length))
+    return main
+
+
+def blend_state(main_state, thought_state, accept):
+    """SSM adaptation, in place: mix the thought's terminal recurrent state
+    into the main state of accepted lanes, (1 - β) m + β t in f32 with
+    β = BLEND_BETA. main/thought: stacked [L, B, ...] states of one kind."""
+    for m, t in zip(cache_lib.tensors(main_state), cache_lib.tensors(thought_state)):
+        acc = accept.reshape((1, -1) + (1,) * (m.dim() - 2))
+        blended = (1.0 - BLEND_BETA) * m.float() + BLEND_BETA * t.float()
+        m.copy_(torch.where(acc, blended.to(m.dtype), m))
+    return main_state
+
+
+def _inject_one(m, t, accept):
+    if isinstance(m, cache_lib.MLACache):
+        return inject_mla(m, t, accept)
+    if isinstance(m, cache_lib.SynapseCache):
+        return inject_synapse(m, t, accept)
+    if isinstance(m, cache_lib.FullCache):
+        return inject_full(m, t, accept)
+    return blend_state(m, t, accept)
+
+
 def inject(cfg: ModelConfig, main_caches, thought_caches, accept):
-    """Injection across the whole stack, in place. Both cache trees come
-    from the same cfg."""
-    for m, t in zip(main_caches.groups, thought_caches.groups):
-        if isinstance(m, cache_lib.SynapseCache):
-            inject_synapse(m, t, accept)
-        else:
-            inject_full(m, t, accept)
+    """Injection across the whole stack — every group and the shared
+    block's caches — in place. Both cache trees come from the same cfg."""
+    for m, t in zip(main_caches.parts(), thought_caches.parts()):
+        _inject_one(m, t, accept)
     return main_caches
 
 

@@ -34,7 +34,7 @@ class Prism:
 
     @property
     def device(self):
-        return self._params["embed"].device
+        return self._params["final_norm"].device  # every model has one (not every model an embedding)
 
     def acquire(self, agent_id: str):
         """Register an agent; returns the shared params (no copy)."""

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.attention import _project_qkv, _rotate, decode_attend
+from repro_torch.models.attention import _project_qkv, decode_attend, rotate_one
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -167,7 +167,7 @@ def synapse_decode(
     cfg: ModelConfig,
     x,          # [B, 1, dm]
     cache: cache_lib.SynapseCache,
-    positions,  # [B]
+    positions,  # [B] (or [B,3] mrope)
     policy: SynapsePolicy = SynapsePolicy(),
 ):
     """One decode step: attend over [landmarks; window; inject slots], write
@@ -180,8 +180,7 @@ def synapse_decode(
     dev = x.device
     K, W, J = cache.n_landmarks, cache.window, cache.n_inject
     q, k, v = _project_qkv(attn_params, cfg, x)
-    q = _rotate(cfg, q, positions[..., None])
-    k = _rotate(cfg, k, positions[..., None])
+    q, k, pos_scalar = rotate_one(cfg, q, k, positions)
     q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
 
     # ---- 1. graduation: the slot the new token will overwrite ----
@@ -233,7 +232,7 @@ def synapse_decode(
     # ---- 2. write the new token into the ring ----
     onehot_write(cache.win_k, slot, k1)
     onehot_write(cache.win_v, slot, v1)
-    onehot_write(cache.win_pos, slot, positions)
+    onehot_write(cache.win_pos, slot, pos_scalar)
     onehot_write(cache.win_score, slot, torch.zeros((B,), dtype=torch.float32, device=dev))
 
     # ---- 3. attend over [landmarks; window; inject]: one kernel launch ----

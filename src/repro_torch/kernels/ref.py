@@ -2,7 +2,9 @@
 
 The CPU path of each kernel wrapper runs these, and ``chip_smoke.py`` and
 the card-only tests hold the kernels against them on the card. They follow
-the JAX package's ``repro.kernels.ref`` oracles.
+the JAX package's ``repro.kernels.ref`` oracles, as does
+:func:`mamba2_chunk_ref`, the token-by-token oracle of Mamba2's chunked
+SSD (plain PyTorch in the model too: the reference has no kernel for it).
 """
 from __future__ import annotations
 
@@ -57,3 +59,22 @@ def landmark_score_ref(q, keys, landmarks=None, scale: float | None = None):
     d2 = (diff * diff).sum(dim=-1)  # [B,T,Kc]
     dist = torch.sqrt(d2.min(dim=-1).values / D)
     return logits, dist
+
+
+def mamba2_chunk_ref(x, a_log_decay, b, c, *, chunk: int):
+    """Reference chunked-SSD core: the recurrence token by token.
+
+    x: [B,S,nh,dh] (dt-scaled inputs), a_log_decay: [B,S,nh] (log a_t, <=0),
+    b, c: [B,S,ds]. Returns y [B,S,nh,dh] f32 (no D-skip or gating: the core
+    only). ``chunk`` is unused, as in the reference oracle: the recurrence
+    is the same for every chunking.
+    """
+    B, S, nh, dh = x.shape
+    ds = b.shape[-1]
+    state = torch.zeros((B, nh, dh, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(a_log_decay[:, t].float())  # [B,nh]
+        state = state * a[:, :, None, None] + torch.einsum("bhd,bs->bhds", x[:, t].float(), b[:, t].float())
+        ys.append(torch.einsum("bhds,bs->bhd", state, c[:, t].float()))
+    return torch.stack(ys, dim=1)

@@ -21,6 +21,8 @@ Port of the JAX package's ``repro.launch.serve``:
 Requests stream: decoded chunks print as the backend commits them, and a
 final SLO summary (TTFT, p50/p99 tick latency, token shares, fairness
 counters) follows. Weights are random, from ``init_params`` seeded 0;
+``--arch`` picks the model (every causal family but qwen2-vl, whose
+M-RoPE decode the serving backends do not drive, as in the reference);
 ``--reduced`` (the default) is the small smoke variant of the config,
 ``--full`` the published widths. :func:`main` returns the front end's
 metrics.
@@ -52,9 +54,12 @@ from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.server import BatchServer
 
+# short enough (32 tokens with the BOS) for every --arch: a Mamba2 prefill
+# takes a prompt of at most ssm_chunk tokens or a multiple of it (32 in the
+# reduced zamba2, 128 at full width), as in the reference
 DEFAULT_REQUESTS = [
-    "gold:0:Question: what makes this system scale? [TASK: verify memory math] Answer:",
-    "free:0:Summarize the warp-cortex architecture in one line.",
+    "gold:0:Why? [TASK: check the math] So:",
+    "free:0:Sum up the architecture.",
 ]
 
 

@@ -1,10 +1,13 @@
 """GQA attention: prefill (blocked) and decode over a full cache.
 
-Port of the JAX package's ``repro.models.attention`` for the dense GQA path
-(rope, optional qkv bias and qk norm). Decode returns the per-key attention
-mass summed over heads — the paper's density term (§3.3) — so the synapse
-policy can accumulate scores without a second pass. The river's attend is
-plain PyTorch, as it is plain jnp in the reference.
+Port of the JAX package's ``repro.models.attention``: grouped-query
+attention (MHA when n_kv_heads == n_heads), qk norm, qkv bias, RoPE,
+M-RoPE (qwen2-vl) or none (hubert), causal or bidirectional masks, and the
+zamba2 shared block's stacked per-invocation LoRA on qkv. Decode returns
+the per-key attention mass summed over heads — the paper's density term
+(§3.3) — so the synapse policy can accumulate scores without a second
+pass. The river's attend is plain PyTorch, as it is plain jnp in the
+reference.
 """
 from __future__ import annotations
 
@@ -13,31 +16,37 @@ import torch
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 SCORE_EMA = 0.99  # decay of the per-slot attention-mass accumulator
 
 
-def check_supported(cfg: ModelConfig):
-    """The port's first slice covers the dense GQA attention group only."""
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"attn_kind={cfg.attn_kind!r}: MLA is ROADMAP queue-1 item 13 (other model families)")
-    if cfg.rope_kind not in ("rope", "none"):
-        raise NotImplementedError(
-            f"rope_kind={cfg.rope_kind!r}: mrope is ROADMAP queue-1 item 13 (other model families)")
-    if cfg.shared_attn_every:
-        raise NotImplementedError("shared attention (zamba2) is ROADMAP queue-1 item 13")
-    for grp in cfg.layer_groups():
-        if grp.kind != "attn" or grp.mlp != "dense":
-            raise NotImplementedError(
-                f"layer group {grp.kind}/{grp.mlp}: only dense attention groups are ported; "
-                "the others are ROADMAP queue-1 item 13 (other model families)")
+def attn_init(gen, cfg: ModelConfig, dtype, device, *, lead=(), n_lora: int = 0):
+    """``n_lora`` > 0 adds stacked per-invocation LoRA adapters on the
+    fused qkv projection (lora_b starts at zero, as in the reference)."""
+    h, hkv, d, dm = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    p = {
+        "wq": dense_init(gen, dm, h * d, dtype, device, lead=lead),
+        "wk": dense_init(gen, dm, hkv * d, dtype, device, lead=lead),
+        "wv": dense_init(gen, dm, hkv * d, dtype, device, lead=lead),
+        "wo": dense_init(gen, h * d, dm, dtype, device, lead=lead),
+    }
+    z = lambda *s: torch.zeros((*lead, *s), dtype=dtype, device=device)
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = z(h * d), z(hkv * d), z(hkv * d)
+    if cfg.qk_norm:
+        p["q_norm"], p["k_norm"] = z(d) + 1, z(d) + 1
+    if n_lora > 0:
+        r = cfg.shared_attn_lora_rank
+        p["lora_a"] = dense_init(gen, dm, r, dtype, device, lead=(*lead, n_lora))
+        p["lora_b"] = z(n_lora, r, (h + 2 * hkv) * d)
+    return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
-    """x: [B, S, dm] -> q [B,S,H,D], k/v [B,S,Hkv,D]."""
+def _project_qkv(p, cfg: ModelConfig, x, lora_idx=None):
+    """x: [B, S, dm] -> q [B,S,H,D], k/v [B,S,Hkv,D]. ``lora_idx`` picks
+    the shared block's per-invocation adapter (a Python int)."""
     B, S, _ = x.shape
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p["wq"]
@@ -45,6 +54,9 @@ def _project_qkv(p, cfg: ModelConfig, x):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if lora_idx is not None and "lora_a" in p:
+        delta = (x @ p["lora_a"][lora_idx]) @ p["lora_b"][lora_idx]  # [B, S, (h+2hkv)*d]
+        q, k, v = q + delta[..., :h * d], k + delta[..., h * d:(h + hkv) * d], v + delta[..., (h + hkv) * d:]
     q = q.reshape(B, S, h, d)
     k = k.reshape(B, S, hkv, d)
     v = v.reshape(B, S, hkv, d)
@@ -57,7 +69,18 @@ def _project_qkv(p, cfg: ModelConfig, x):
 def _rotate(cfg: ModelConfig, x, positions):
     if cfg.rope_kind == "none":
         return x
+    if cfg.rope_kind == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+def rotate_one(cfg: ModelConfig, q, k, positions):
+    """Rotate one decode token's q [B,1,H,D] and k [B,1,Hkv,D] by
+    ``positions`` ([B], or [B,3] for M-RoPE); returns (q, k, the scalar
+    position [B] each cache slot records)."""
+    q = _rotate(cfg, q, positions[..., None])
+    k = _rotate(cfg, k, positions[..., None])
+    return q, k, positions[:, 0] if cfg.rope_kind == "mrope" else positions
 
 
 # ---------------------------------------------------------------------------
@@ -85,9 +108,9 @@ def blocked_attention(q, k, v, *, causal: bool, chunk: int = 1024):
     return torch.cat(outs, dim=1).reshape(B, S, H, D)
 
 
-def attention_forward(params, cfg: ModelConfig, x, positions, *, chunk: int = 1024):
+def attention_forward(params, cfg: ModelConfig, x, positions, *, lora_idx=None, chunk: int = 1024):
     """Full-sequence forward. Returns (y, (k_rot, v)) for cache fill."""
-    q, k, v = _project_qkv(params, cfg, x)
+    q, k, v = _project_qkv(params, cfg, x, lora_idx)
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
     out = blocked_attention(q, k, v, causal=cfg.causal, chunk=chunk)
@@ -130,8 +153,9 @@ def masked_lane_write(buf, slot, val, ok):
 def attention_decode_full(params, cfg: ModelConfig, x, cache: cache_lib.FullCache, positions):
     """One-token decode against a FullCache, updating the cache IN PLACE.
 
-    x: [B, 1, dm]; positions: [B] (rope index of the new token).
-    Returns (y [B,1,dm], cache, key_mass [B,S]).
+    x: [B, 1, dm]; positions: [B] (rope index of the new token) or [B,3]
+    (M-RoPE). Returns (y [B,1,dm], cache, key_mass [B,S]). The shared
+    block's decode takes no LoRA, as in the reference.
 
     The reference's scatter at ``length`` is dropped by JAX when the cursor
     is past capacity (idle lanes keep counting). A CUDA scatter past the end
@@ -140,15 +164,14 @@ def attention_decode_full(params, cfg: ModelConfig, x, cache: cache_lib.FullCach
     """
     B = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x)
-    q = _rotate(cfg, q, positions[..., None])
-    k = _rotate(cfg, k, positions[..., None])
+    q, k, pos_scalar = rotate_one(cfg, q, k, positions)
     q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
     cap = cache.capacity
     ok = cache.length < cap
     slot = cache.length.clamp(max=cap - 1).long()
     masked_lane_write(cache.k, slot, k1, ok)
     masked_lane_write(cache.v, slot, v1, ok)
-    masked_lane_write(cache.pos, slot, positions, ok)
+    masked_lane_write(cache.pos, slot, pos_scalar, ok)
     slots = torch.arange(cap, device=x.device)
     valid = slots[None, :] <= cache.length[:, None]  # includes the token just written
     out, key_mass = decode_attend(q1, cache.k, cache.v, valid)

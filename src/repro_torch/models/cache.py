@@ -11,6 +11,9 @@ writes into these tensors in place.
 * SynapseCache — the paper's Topological Synapse as a streaming cache:
                  K landmark slots + W recent-window ring + J referential-
                  injection slots. O(K+W+J) per agent instead of O(L).
+* MLACache     — DeepSeek-V2 latent cache (c_kv + shared rope key).
+* Mamba2State  — conv tail + SSD state (O(1)).
+* RWKV6State   — token-shift tails + wkv matrix state (O(1)).
 """
 from __future__ import annotations
 
@@ -37,10 +40,17 @@ def map_cache(fn, cache, *others):
     })
 
 
+def leading(a: torch.Tensor, shape) -> torch.Tensor:
+    """The view of ``a`` at offset 0 with ``shape``: where a smaller tensor
+    lands when the reference's ``dynamic_update_slice`` writes it at 0."""
+    return a[tuple(slice(0, n) for n in shape)] if tuple(a.shape) != tuple(shape) else a
+
+
 def copy_into(dst, src):
-    """In place: every tensor of ``dst`` takes the values of ``src``."""
+    """In place: every tensor of ``dst`` takes the values of ``src`` (a
+    shorter one fills the leading slots, as a reference update at 0 does)."""
     for a, b in zip(tensors(dst), tensors(src)):
-        a.copy_(b)
+        leading(a, b.shape).copy_(b)
 
 
 @dataclass
@@ -88,6 +98,31 @@ class SynapseCache:
     @property
     def n_inject(self) -> int:
         return self.inj_k.shape[-3]
+
+
+@dataclass
+class MLACache:
+    ckv: torch.Tensor     # [B, S, r] latent
+    krope: torch.Tensor   # [B, S, d_rope] shared rope key
+    score: torch.Tensor   # [B, S] f32 — accumulated attention mass (density EMA)
+    length: torch.Tensor  # [B] int32
+
+    @property
+    def capacity(self) -> int:
+        return self.ckv.shape[-2]
+
+
+@dataclass
+class Mamba2State:
+    conv: torch.Tensor  # [B, conv_width-1, d_conv_ch] — conv input tail
+    ssm: torch.Tensor   # [B, n_heads, d_head, d_state] f32
+
+
+@dataclass
+class RWKV6State:
+    shift_tm: torch.Tensor  # [B, d_model] — previous token (time-mix)
+    shift_cm: torch.Tensor  # [B, d_model] — previous token (channel-mix)
+    wkv: torch.Tensor       # [B, H, head, head] f32 matrix state
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +177,37 @@ def init_synapse_cache(
         inj_count=zi(batch),
         win_count=zi(batch),
         length=zi(batch),
+    )
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *, device, lead=()) -> MLACache:
+    dtype = _dtype(cfg, dtype)
+    z = lambda *s, dt=dtype: torch.zeros((*lead, *s), dtype=dt, device=device)
+    return MLACache(
+        ckv=z(batch, capacity, cfg.kv_lora_rank),
+        krope=z(batch, capacity, cfg.qk_rope_head_dim),
+        score=z(batch, capacity, dt=torch.float32),
+        length=z(batch, dt=torch.int32),
+    )
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, dtype=None, *, device, lead=()) -> Mamba2State:
+    dtype = _dtype(cfg, dtype)
+    d_conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_state_size
+    return Mamba2State(
+        conv=torch.zeros((*lead, batch, cfg.ssm_conv_width - 1, d_conv_ch), dtype=dtype, device=device),
+        ssm=torch.zeros((*lead, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state_size),
+                        dtype=torch.float32, device=device),
+    )
+
+
+def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype=None, *, device, lead=()) -> RWKV6State:
+    dtype = _dtype(cfg, dtype)
+    h, hs = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    return RWKV6State(
+        shift_tm=torch.zeros((*lead, batch, cfg.d_model), dtype=dtype, device=device),
+        shift_cm=torch.zeros((*lead, batch, cfg.d_model), dtype=dtype, device=device),
+        wkv=torch.zeros((*lead, batch, h, hs, hs), dtype=torch.float32, device=device),
     )
 
 

@@ -69,6 +69,37 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _mrope_select(d_half: int, sections: tuple[int, int, int], device: torch.device):
+    """[3, d_half] f32 one-hot: frequency band i rotates by axis sel[:, i]."""
+    sel = np.zeros((3, d_half), np.float32)
+    start = 0
+    for axis, sec in enumerate(sections):
+        sel[axis, start:start + sec] = 1.0
+        start += sec
+    return torch.from_numpy(sel).to(device)
+
+
+def apply_mrope(x, positions, theta: float, sections: tuple[int, int, int]):
+    """Multimodal RoPE (Qwen2-VL §3): positions [..., 3, S] for (t, h, w).
+
+    The head dim's frequency bands are split into ``sections`` (halved
+    dims: sum(sections) == d_head // 2); each band rotates by its own
+    positional axis. For text, where the three axes carry the same index,
+    this is standard RoPE.
+    """
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    inv = _inv_freqs(d, theta, x.device)
+    ang_all = positions[..., :, :, None].float() * inv  # [..., 3, S, D/2]
+    ang = torch.einsum("...tsd,td->...sd", ang_all, _mrope_select(d // 2, tuple(sections), x.device))
+    ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

@@ -1,0 +1,128 @@
+"""Mamba2 (SSD) mixer: the chunked parallel form and the O(1) decode step.
+
+Port of the JAX package's ``repro.models.mamba2`` (zamba2's backbone).
+The chunked state-space-dual algorithm writes the selective scan as
+blocked matmuls: a within-chunk quadratic, attention-like term plus a
+recurrence over chunk states. Plain PyTorch, as the reference is plain jnp
+(its oracle is :func:`repro_torch.kernels.ref.mamba2_chunk_ref`).
+
+Recurrence (per head h, scalar decay):
+    H_t = a_t * H_{t-1} + (dt_t x_t) ⊗ B_t        a_t = exp(dt_t * A_h)
+    y_t = C_t · H_t + D_h * x_t
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import cache as cache_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init, rms_norm
+
+
+def mamba2_init(gen, cfg: ModelConfig, dtype, device, *, lead=()):
+    dm, di, ds, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads
+    d_conv_ch = di + 2 * ds
+    f32 = lambda fill, n: torch.full((*lead, n), fill, dtype=torch.float32, device=device)
+    conv_w = torch.randn((*lead, cfg.ssm_conv_width, d_conv_ch), generator=gen, device=device) * 0.1
+    return {
+        # in_proj -> [z (di), xBC (di + 2ds), dt (nh)]
+        "w_in": dense_init(gen, dm, 2 * di + 2 * ds + nh, dtype, device, lead=lead),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((*lead, d_conv_ch), dtype=dtype, device=device),
+        "a_log": f32(0.0, nh),      # A = -exp(a_log) = -1
+        "dt_bias": f32(0.0, nh),
+        "d_skip": f32(1.0, nh),
+        "gate_norm": torch.ones((*lead, di), dtype=dtype, device=device),
+        "w_out": dense_init(gen, di, dm, dtype, device, lead=lead),
+    }
+
+
+def _split_in(cfg: ModelConfig, zxbcdt):
+    di, ds = cfg.ssm_d_inner, cfg.ssm_state_size
+    return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * ds], zxbcdt[..., 2 * di + 2 * ds:]
+
+
+def mamba2_forward(p, cfg: ModelConfig, x, return_state: bool = False):
+    """Full-sequence chunked SSD. x: [B,S,dm] -> y [B,S,dm] (and the
+    terminal decode state). S must be a multiple of the chunk, or shorter
+    than it, as in the reference."""
+    B, S, _ = x.shape
+    di, ds, nh, dh = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, S)
+    assert S % Q == 0, (S, Q)
+    nC = S // Q
+
+    zxbcdt = x @ p["w_in"]
+    z, xbc_raw, dt = _split_in(cfg, zxbcdt)
+    # causal depthwise conv (width W)
+    W = cfg.ssm_conv_width
+    padded = F.pad(xbc_raw, (0, 0, W - 1, 0))
+    conv = sum(padded[:, i:i + S, :] * p["conv_w"][i][None, None, :] for i in range(W)) + p["conv_b"]
+    xbc = F.silu(conv)
+    xs = xbc[..., :di].reshape(B, S, nh, dh)
+    Bm = xbc[..., di:di + ds]       # [B,S,ds]
+    Cm = xbc[..., di + ds:]         # [B,S,ds]
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                  # [B,S,nh]
+    A = -torch.exp(p["a_log"])                                  # [nh]
+    la = (dt * A).reshape(B, nC, Q, nh)                         # log decay per step
+    cum = torch.cumsum(la, dim=2)                               # Λ_i
+    X = (xs.float() * dt[..., None]).reshape(B, nC, Q, nh, dh)
+    Bc = Bm.float().reshape(B, nC, Q, ds)
+    Cc = Cm.float().reshape(B, nC, Q, ds)
+
+    # ---- intra-chunk: Y[i] = Σ_{j<=i} exp(Λ_i-Λ_j) (C_i·B_j) X_j ----
+    G = torch.einsum("bcis,bcjs->bcij", Cc, Bc)                 # [B,nC,Q,Q]
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # Λ_i - Λ_j: [B,nC,Q,Q,nh]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    M = torch.where(mask[None, None, :, :, None], torch.exp(dec), torch.zeros((), device=x.device)) * G[..., None]
+    y_intra = torch.einsum("bcijh,bcjhd->bcihd", M, X)
+
+    # ---- chunk states: S_c = Σ_j exp(Λ_Q - Λ_j) B_j ⊗ X_j ----
+    tail_dec = torch.exp(cum[:, :, -1:, :] - cum)               # [B,nC,Q,nh]
+    chunk_state = torch.einsum("bcjh,bcjs,bcjhd->bchds", tail_dec, Bc, X)  # [B,nC,nh,dh,ds]
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # [B,nC,nh]
+
+    # ---- inter-chunk recurrence over chunk states ----
+    carry = torch.zeros((B, nh, dh, ds), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nC):
+        prev.append(carry)  # the state entering chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    prev_states = torch.stack(prev, dim=1)                      # [B,nC,nh,dh,ds]
+    y_inter = torch.einsum("bcis,bcih,bchds->bcihd", Cc, torch.exp(cum), prev_states)
+
+    y = (y_intra + y_inter).reshape(B, S, nh, dh) + xs.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(B, S, di)
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    out = y @ p["w_out"]
+    if not return_state:
+        return out
+    # terminal decode state: the final SSD state and the raw (pre-conv)
+    # input tail (the reference's slice, shorter when S < W - 1)
+    conv_tail = xbc_raw[:, S - (W - 1):, :] if W > 1 else xbc_raw[:, :0, :]
+    return out, cache_lib.Mamba2State(conv=conv_tail.to(x.dtype), ssm=carry)
+
+
+def mamba2_decode(p, cfg: ModelConfig, x, state: cache_lib.Mamba2State):
+    """Single-token step. x: [B,1,dm]. Returns (y [B,1,dm], new state)."""
+    B = x.shape[0]
+    di, ds, nh, dh = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim
+    z, xbc, dt = _split_in(cfg, x[:, 0] @ p["w_in"])
+    # conv over [tail, new]
+    window = torch.cat([state.conv, xbc[:, None, :].to(state.conv.dtype)], dim=1)  # [B, W, ch]
+    conv = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float()) + p["conv_b"].float()
+    xbc_a = F.silu(conv)
+    xs = xbc_a[:, :di].reshape(B, nh, dh)
+    Bm = xbc_a[:, di:di + ds]
+    Cm = xbc_a[:, di + ds:]
+    dt = F.softplus(dt.float() + p["dt_bias"])                  # [B,nh]
+    a = torch.exp(dt * (-torch.exp(p["a_log"])))                # [B,nh]
+    X = xs * dt[..., None]                                      # [B,nh,dh]
+    new_ssm = state.ssm * a[:, :, None, None] + torch.einsum("bhd,bs->bhds", X, Bm)
+    y = torch.einsum("bhds,bs->bhd", new_ssm, Cm) + xs * p["d_skip"][None, :, None]
+    y = y.reshape(B, di)
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    out = (y @ p["w_out"])[:, None, :]
+    return out, cache_lib.Mamba2State(conv=window[:, 1:, :], ssm=new_ssm)

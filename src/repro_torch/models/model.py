@@ -1,12 +1,17 @@
-"""Dense decoder: parameters, caches, prefill and one-token decode.
+"""Unified model: parameters, caches, forward, prefill and one-token decode
+for every architecture of :mod:`repro_torch.configs`.
 
-Port of the JAX package's ``repro.models.model`` for dense GQA attention
-groups. Parameters are a nested dict with the reference's layout — ``embed``
-[V, d], ``groups[g]`` with every leaf stacked on a leading layer axis,
-``final_norm``, and ``head`` unless embeddings are tied — so
-:mod:`repro_torch.bridge` carries JAX weights over leaf by leaf. The layer
-stack is a Python loop over the stacked leaves. Decode updates the caches
-IN PLACE (the reference donates them).
+Port of the JAX package's ``repro.models.model``. Parameters are a nested
+dict with the reference's layout — ``embed`` [V, d] (absent for the
+encoder-only model), ``groups[g]`` with every leaf stacked on a leading
+layer axis, ``shared_attn`` for the hybrid's shared block, ``final_norm``,
+and ``head`` unless embeddings are tied — so :mod:`repro_torch.bridge`
+carries JAX weights over leaf by leaf. The layer stack runs as the
+reference's *segments*: a run of layers of one group, then, in the hybrid
+(zamba2), one invocation of the shared attention block with its own LoRA
+and its own slice of the stacked shared cache. Layers are a Python loop
+over the stacked leaves. Prefill and decode update the caches IN PLACE
+(the reference donates them).
 """
 from __future__ import annotations
 
@@ -16,8 +21,8 @@ import torch
 
 from repro_torch.core import synapse as synapse_lib
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models import attention, cache as cache_lib
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import attention, cache as cache_lib, mamba2, mla, moe, rwkv6
+from repro_torch.models.config import LayerGroup, ModelConfig
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu, swiglu_init
 
 
@@ -34,54 +39,106 @@ class CacheSpec:
 @dataclass
 class ModelCaches:
     """Decode state for the whole stack: one stacked [L, B, ...] cache per
-    layer group. ``shared`` (hybrid shared attention) is always None in this
-    slice; the field keeps the reference's layout."""
+    layer group and, for the hybrid, the shared block's caches stacked per
+    invocation, [n_inv, B, ...] (None otherwise).
+
+    The reference treats this as a pytree, so every map over it carries
+    ``shared`` along; here :meth:`parts` and :meth:`map` are that one
+    traversal, and every helper that walks the caches goes through them."""
 
     groups: tuple
     shared: object = None
+
+    def parts(self) -> list:
+        """Every stacked cache: the groups' in order, then the shared one."""
+        return [*self.groups, *(() if self.shared is None else (self.shared,))]
+
+    def map(self, fn) -> "ModelCaches":
+        """A new ModelCaches with ``fn`` applied to each stacked cache."""
+        return ModelCaches(groups=tuple(fn(c) for c in self.groups),
+                           shared=None if self.shared is None else fn(self.shared))
+
+    def tensors(self) -> list:
+        return [a for c in self.parts() for a in cache_lib.tensors(c)]
+
+
+# ---------------------------------------------------------------------------
+# segment plan
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Segment:
+    group: int         # index into layer groups / params["groups"]
+    start: int         # first layer within the group's stacked params
+    count: int
+    shared_after: int  # shared-attn invocation after this segment, or -1
+
+
+def build_segments(cfg: ModelConfig) -> list[Segment]:
+    segs: list[Segment] = []
+    groups = cfg.layer_groups()
+    if cfg.shared_attn_every > 0:
+        assert len(groups) == 1
+        every, total = cfg.shared_attn_every, groups[0].count
+        start = inv = 0
+        while start < total:
+            count = min(every, total - start)
+            has_inv = (start + count) % every == 0 and inv < cfg.n_shared_attn_invocations
+            segs.append(Segment(0, start, count, inv if has_inv else -1))
+            if has_inv:
+                inv += 1
+            start += count
+        return segs
+    return [Segment(g, 0, grp.count, -1) for g, grp in enumerate(groups)]
 
 
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
-def _attn_init(gen, cfg: ModelConfig, dtype, device, lead):
-    h, hkv, d, dm = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
-    p = {
-        "wq": dense_init(gen, dm, h * d, dtype, device, lead=lead),
-        "wk": dense_init(gen, dm, hkv * d, dtype, device, lead=lead),
-        "wv": dense_init(gen, dm, hkv * d, dtype, device, lead=lead),
-        "wo": dense_init(gen, h * d, dm, dtype, device, lead=lead),
-    }
-    z = lambda n: torch.zeros((*lead, n), dtype=dtype, device=device)
-    if cfg.qkv_bias:
-        p["bq"], p["bk"], p["bv"] = z(h * d), z(hkv * d), z(hkv * d)
-    if cfg.qk_norm:
-        p["q_norm"], p["k_norm"] = z(d) + 1, z(d) + 1
-    return p
+def _block_init(gen, cfg: ModelConfig, grp: LayerGroup, dtype, device):
+    L = (grp.count,)
+    ones = lambda: torch.ones((*L, cfg.d_model), dtype=dtype, device=device)
+    if grp.kind == "attn":
+        p = {"ln1": ones(), "ln2": ones()}
+        if cfg.attn_kind == "mla":
+            p["attn"] = mla.mla_init(gen, cfg, dtype, device, lead=L)
+        else:
+            p["attn"] = attention.attn_init(gen, cfg, dtype, device, lead=L)
+        if grp.mlp == "moe":
+            p["mlp"] = moe.moe_init(gen, cfg, dtype, device, lead=L)
+        else:
+            # dense MLP; inside a MoE model (first_k_dense) it uses dense_d_ff
+            dff = cfg.d_ff if not cfg.is_moe else (cfg.dense_d_ff or cfg.d_ff * cfg.experts_per_token)
+            p["mlp"] = swiglu_init(gen, cfg.d_model, dff, dtype, device, lead=L)
+        return p
+    if grp.kind == "mamba2":
+        return {"ln": ones(), "mixer": mamba2.mamba2_init(gen, cfg, dtype, device, lead=L)}
+    if grp.kind == "rwkv6":
+        return {"ln1": ones(), "tmix": rwkv6.rwkv6_tmix_init(gen, cfg, dtype, device, lead=L),
+                "ln2": ones(), "cmix": rwkv6.rwkv6_cmix_init(gen, cfg, dtype, device, lead=L)}
+    raise ValueError(grp.kind)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card unless ``device="cpu"``). The layout matches the reference's
     ``init_params``; the values do not (a different generator)."""
-    attention.check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
-    ones = lambda *s: torch.ones(s, dtype=dtype, device=device)
-    params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)}
-    groups = []
-    for grp in cfg.layer_groups():
-        L = (grp.count,)
-        groups.append({
-            "ln1": ones(grp.count, cfg.d_model),
-            "ln2": ones(grp.count, cfg.d_model),
-            "attn": _attn_init(gen, cfg, dtype, device, L),
-            "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, device, lead=L),
-        })
-    params["groups"] = groups
-    params["final_norm"] = ones(cfg.d_model)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    params: dict = {}
+    if cfg.embed_inputs or not cfg.is_encoder_only:
+        params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
+    params["groups"] = [_block_init(gen, cfg, grp, dtype, device) for grp in cfg.layer_groups()]
+    if cfg.shared_attn_every > 0:
+        params["shared_attn"] = {
+            "ln1": ones(),
+            "attn": attention.attn_init(gen, cfg, dtype, device, n_lora=cfg.n_shared_attn_invocations),
+            "ln2": ones(),
+            "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        }
+    params["final_norm"] = ones()
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, device)
     return params
@@ -125,22 +182,47 @@ def _head(params, cfg: ModelConfig, x):
     return (x @ head.to(x.dtype)).float()
 
 
+def check_servable(cfg: ModelConfig, entry: str) -> None:
+    """Refuse the families the reference's serving entry points cannot run.
+
+    ``CortexEngine`` and ``BatchServer`` prefill token prompts and decode
+    with one rope position per lane ([B]), as the reference's do. The
+    encoder-only model has no prefill or decode (the reference asserts at
+    the first prefill), and M-RoPE decode needs [B, 3] positions (the
+    reference's engine and server fail at their first decode step); the
+    port refuses both at construction instead. Both still run through the
+    model's own functions (``forward``; ``prefill``/``decode_step`` with
+    [B, 3, S]/[B, 3] positions)."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{entry}: {cfg.name} is encoder-only: it has a forward, no prefill or decode")
+    if cfg.rope_kind == "mrope":
+        raise ValueError(f"{entry}: {cfg.name} uses M-RoPE, whose decode takes [B, 3] positions; the "
+                         f"serving entry points decode with one position per lane, as the reference's do")
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
 def init_caches(cfg: ModelConfig, batch: int, spec: CacheSpec, *, device) -> ModelCaches:
-    attention.check_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
+    kw = dict(device=device)
+    attn_cache = lambda lead: (
+        cache_lib.init_synapse_cache(cfg, batch, spec.n_landmarks, spec.window, spec.n_inject, dtype, lead=lead, **kw)
+        if spec.kind == "synapse" else
+        cache_lib.init_full_cache(cfg, batch, spec.capacity, dtype, lead=lead, **kw))
     out = []
     for grp in cfg.layer_groups():
         L = (grp.count,)
-        if spec.kind == "synapse":
-            c = cache_lib.init_synapse_cache(
-                cfg, batch, spec.n_landmarks, spec.window, spec.n_inject, dtype, device=device, lead=L)
+        if grp.kind == "attn":
+            c = (cache_lib.init_mla_cache(cfg, batch, spec.capacity, dtype, lead=L, **kw)
+                 if cfg.attn_kind == "mla" else attn_cache(L))
+        elif grp.kind == "mamba2":
+            c = cache_lib.init_mamba2_state(cfg, batch, dtype, lead=L, **kw)
         else:
-            c = cache_lib.init_full_cache(cfg, batch, spec.capacity, dtype, device=device, lead=L)
+            c = cache_lib.init_rwkv6_state(cfg, batch, dtype, lead=L, **kw)
         out.append(c)
-    return ModelCaches(groups=tuple(out))
+    shared = attn_cache((cfg.n_shared_attn_invocations,)) if cfg.shared_attn_every > 0 else None
+    return ModelCaches(groups=tuple(out), shared=shared)
 
 
 def layer_cache(c, i: int):
@@ -151,78 +233,206 @@ def layer_cache(c, i: int):
 def lane_caches(caches: ModelCaches, lane: int) -> ModelCaches:
     """One lane of the stacked caches, keeping the lane axis (axis 1; axis
     0 is the stacked layer dim), as views."""
-    return ModelCaches(groups=tuple(cache_lib.map_cache(lambda a: a[:, lane:lane + 1], c) for c in caches.groups))
+    return caches.map(lambda c: cache_lib.map_cache(lambda a: a[:, lane:lane + 1], c))
 
 
 def write_lane(caches: ModelCaches, part: ModelCaches, lane: int) -> None:
     """In place: ``lane`` of the stacked caches takes the values of the
-    one-lane caches ``part``."""
-    for dst, src in zip(caches.groups, part.groups):
-        for a, b in zip(cache_lib.tensors(dst), cache_lib.tensors(src)):
-            a[:, lane:lane + 1].copy_(b)
+    one-lane caches ``part``. A part shorter along a slot axis (an MLA
+    river cache spawned into a longer side cache) fills the leading slots,
+    as the reference's ``dynamic_update_slice`` does."""
+    for a, b in zip(caches.tensors(), part.tensors()):
+        cache_lib.leading(a[:, lane:lane + 1], b.shape).copy_(b)
 
 
 # ---------------------------------------------------------------------------
-# prefill
+# blocks
 # ---------------------------------------------------------------------------
-def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+def _inputs(params, cfg: ModelConfig, inputs: dict):
+    """The residual stream ([B, S, d], or [B, d] for one decode token) in
+    the compute dtype, from ``embeds`` or from ``tokens`` through the
+    embedding table."""
+    if "embeds" in inputs:
+        return inputs["embeds"].to(torch_dtype(cfg.compute_dtype))
+    return params["embed"][inputs["tokens"].long()].to(torch_dtype(cfg.compute_dtype))
 
 
-def _last_query(block_params, cfg: ModelConfig, x_in, positions):
-    """The last position's rotated query [B,H,D] (one token's work)."""
+def _positions(cfg: ModelConfig, inputs: dict, B: int, S: int, device):
+    """[B, S] positions (0..S-1 unless given), [B, 3, S] for M-RoPE."""
+    if "positions" in inputs:
+        return inputs["positions"]
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    return pos[:, None, :].expand(B, 3, S) if cfg.rope_kind == "mrope" else pos
+
+
+def _last_query(block_params, cfg: ModelConfig, x_in, positions, lora_idx=None):
+    """The last position's rotated query [B,H,D] (one token's work).
+    block_params: a block dict with "ln1" and "attn"; x_in: its input."""
     h = rms_norm(x_in[:, -1:, :], block_params["ln1"], cfg.norm_eps)
-    q, _, _ = attention._project_qkv(block_params["attn"], cfg, h)
-    q = attention._rotate(cfg, q, positions[:, -1:])
+    q, _, _ = attention._project_qkv(block_params["attn"], cfg, h, lora_idx)
+    q = attention._rotate(cfg, q, positions[..., -1:])
     return q[:, 0]
 
 
-def _attn_block_fwd(p, cfg: ModelConfig, x, positions, chunk):
+def _zero_aux(device):
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "drop_frac": z}
+
+
+def _attn_block_fwd(p, cfg: ModelConfig, mlp_kind: str, x, positions, chunk):
+    """Returns (x_out, aux, kv): kv is (k_rot, v), or (ckv, krope) for MLA."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, kv = attention.attention_forward(p["attn"], cfg, h, positions, chunk=chunk)
+    if cfg.attn_kind == "mla":
+        y, kv = mla.mla_forward(p["attn"], cfg, h, positions, chunk=chunk)
+    else:
+        y, kv = attention.attention_forward(p["attn"], cfg, h, positions, chunk=chunk)
+    x = _radd(x, y)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if mlp_kind == "moe":
+        y, aux = moe.moe_forward(p["mlp"], cfg, h)
+    else:
+        y, aux = swiglu(p["mlp"], h), _zero_aux(x.device)
+    return _radd(x, y), aux, kv
+
+
+def _shared_attn_fwd(p, cfg: ModelConfig, x, positions, lora_idx: int, chunk):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, kv = attention.attention_forward(p["attn"], cfg, h, positions, lora_idx=lora_idx, chunk=chunk)
     x = _radd(x, y)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return _radd(x, swiglu(p["mlp"], h)), kv
 
 
+def _mamba2_fwd_state(p_layer, cfg: ModelConfig, x):
+    """Mamba2 layer forward that also returns the terminal decode state."""
+    h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
+    y, state = mamba2.mamba2_forward(p_layer["mixer"], cfg, h, return_state=True)
+    return _radd(x, y), state
+
+
+def _rwkv6_fwd_state(p_layer, cfg: ModelConfig, x):
+    h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+    y, (shift_tm, wkv) = rwkv6.rwkv6_tmix_forward(p_layer["tmix"], cfg, h)
+    x = _radd(x, y)
+    h2 = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
+    y2, shift_cm = rwkv6.rwkv6_cmix_forward(p_layer["cmix"], cfg, h2)
+    return _radd(x, y2), cache_lib.RWKV6State(shift_tm=shift_tm, shift_cm=shift_cm, wkv=wkv)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+def forward(params, cfg: ModelConfig, inputs: dict, *, chunk: int = 1024):
+    """Eval forward over a whole sequence (the encoder's only entry point).
+
+    inputs: {"tokens": [B,S] int32} or {"embeds": [B,S,d]}, optional
+    "positions" ([B,S], or [B,3,S] for M-RoPE). Returns (logits [B,S,V]
+    f32, aux) with the MoE aux terms summed over layers and
+    ``hidden_last`` [B, d].
+    """
+    params = cast_params(params, cfg)
+    x = _inputs(params, cfg, inputs)
+    B, S = x.shape[:2]
+    positions = _positions(cfg, inputs, B, S, x.device)
+    groups = cfg.layer_groups()
+    aux_total = _zero_aux(x.device)
+    for seg in build_segments(cfg):
+        grp, pg = groups[seg.group], params["groups"][seg.group]
+        for i in range(seg.start, seg.start + seg.count):
+            p_layer = _layer(pg, i)
+            if grp.kind == "attn":
+                x, aux, _ = _attn_block_fwd(p_layer, cfg, grp.mlp, x, positions, chunk)
+                aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
+            elif grp.kind == "mamba2":
+                h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
+                x = _radd(x, mamba2.mamba2_forward(p_layer["mixer"], cfg, h))
+            else:
+                x, _ = _rwkv6_fwd_state(p_layer, cfg, x)
+        if seg.shared_after >= 0:
+            x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, positions, seg.shared_after, chunk)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux_total["hidden_last"] = x[:, -1, :]
+    return _head(params, cfg, x), aux_total
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+def _fill_full_cache(cache: cache_lib.FullCache, k, v, positions, length, score=None):
+    """In place: write the [B,S,...] prefix into a FullCache from slot 0."""
+    S = k.shape[1]
+    cache.k[:, :S] = k.to(cache.k.dtype)
+    cache.v[:, :S] = v.to(cache.v.dtype)
+    cache.pos[:, :S] = positions
+    if score is not None:
+        cache.score[:, :S] = score
+    cache.length.copy_(length)
+
+
+def _fill_attn_cache(cfg: ModelConfig, spec: CacheSpec, cache, kv, q_last, positions, lengths, *, with_score: bool):
+    """In place: one attention layer's (or invocation's) cache from the
+    prompt's rotated K/V; synapse caches compress them at once with
+    ``q_last`` as the paper's Q_t."""
+    k_rot, v = kv
+    if spec.kind == "synapse":
+        full = cache_lib.FullCache(
+            k_rot.to(cache.lm_k.dtype), v.to(cache.lm_v.dtype), positions.to(torch.int32),
+            torch.zeros(positions.shape, dtype=torch.float32, device=k_rot.device), lengths,
+        )
+        comp = synapse_lib.compress(cfg, full, q_last, cache.n_landmarks, cache.window, cache.n_inject, spec.policy)
+        cache_lib.copy_into(cache, comp)
+        return
+    dens = None
+    if with_score:
+        dens = synapse_lib.attention_density(
+            q_last, k_rot.to(cache.k.dtype), torch.ones(k_rot.shape[:2], dtype=torch.bool, device=k_rot.device))
+    _fill_full_cache(cache, k_rot, v, positions, lengths, score=dens)
+
+
 def prefill(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, spec: CacheSpec, chunk: int = 1024):
     """Run the prompt through the stack, filling ``caches`` in place from
-    slot 0. For spec.kind == "synapse" each layer's prompt KV is compressed
-    at once by hybrid landmark selection, with the last token's query as the
-    paper's Q_t. Returns (logits_last [B,V] f32, hidden_last [B,d], caches).
+    slot 0. inputs: {"tokens": [B,S]} or {"embeds": [B,S,d]}, optional
+    "positions". Attention caches of kind "synapse" are compressed at once
+    by hybrid landmark selection, with the last token's query as the
+    paper's Q_t; recurrent states start fresh. Returns (logits_last [B,V]
+    f32, hidden_last [B,d], caches).
     """
-    tokens = inputs["tokens"]
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    if "positions" in inputs:
-        positions = inputs["positions"]
-    else:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    assert not cfg.is_encoder_only, "encoder-only archs have no decode/prefill"
+    x = _inputs(params, cfg, inputs)
+    B, S = x.shape[:2]
+    positions = _positions(cfg, inputs, B, S, x.device)
+    pos_scalar = positions[:, 0, :] if cfg.rope_kind == "mrope" else positions
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    for g, grp in enumerate(cfg.layer_groups()):
-        pg, cg = params["groups"][g], caches.groups[g]
-        for i in range(grp.count):
-            p_layer = _layer(pg, i)
+    groups = cfg.layer_groups()
+    for seg in build_segments(cfg):
+        grp, pg, cg = groups[seg.group], params["groups"][seg.group], caches.groups[seg.group]
+        for i in range(seg.start, seg.start + seg.count):
+            p_layer, cache = _layer(pg, i), layer_cache(cg, i)
+            if grp.kind == "mamba2":
+                x, state = _mamba2_fwd_state(p_layer, cfg, x)
+                cache_lib.copy_into(cache, state)
+                continue
+            if grp.kind == "rwkv6":
+                x, state = _rwkv6_fwd_state(p_layer, cfg, x)
+                cache_lib.copy_into(cache, state)
+                continue
             carry = x
-            x, (k_rot, v) = _attn_block_fwd(p_layer, cfg, carry, positions, chunk)
-            q_last = _last_query(p_layer, cfg, carry, positions)
-            cache = layer_cache(cg, i)
-            if spec.kind == "synapse":
-                full = cache_lib.FullCache(
-                    k_rot.to(cache.lm_k.dtype), v.to(cache.lm_v.dtype), positions.to(torch.int32),
-                    torch.zeros(positions.shape, dtype=torch.float32, device=x.device), lengths,
-                )
-                comp = synapse_lib.compress(
-                    cfg, full, q_last, cache.n_landmarks, cache.window, cache.n_inject, spec.policy)
-                cache_lib.copy_into(cache, comp)
-            else:
-                dens = synapse_lib.attention_density(
-                    q_last, k_rot.to(cache.k.dtype), torch.ones(k_rot.shape[:2], dtype=torch.bool, device=x.device))
-                cache.k[:, :S] = k_rot.to(cache.k.dtype)
-                cache.v[:, :S] = v.to(cache.v.dtype)
-                cache.pos[:, :S] = positions
-                cache.score[:, :S] = dens
+            x, _, kv = _attn_block_fwd(p_layer, cfg, grp.mlp, carry, positions, chunk)
+            if cfg.attn_kind == "mla":
+                ckv, krope = kv
+                cache.ckv[:, :S] = ckv.to(cache.ckv.dtype)
+                cache.krope[:, :S] = krope.to(cache.krope.dtype)
                 cache.length.copy_(lengths)
+                continue
+            q_last = _last_query(p_layer, cfg, carry, positions)
+            _fill_attn_cache(cfg, spec, cache, kv, q_last, pos_scalar, lengths, with_score=True)
+        if seg.shared_after >= 0:
+            inv, x_before = seg.shared_after, x
+            x, kv = _shared_attn_fwd(params["shared_attn"], cfg, x, positions, inv, chunk)
+            q_last = (_last_query(params["shared_attn"], cfg, x_before, positions, lora_idx=inv)
+                      if spec.kind == "synapse" else None)
+            _fill_attn_cache(cfg, spec, layer_cache(caches.shared, inv), kv, q_last, pos_scalar, lengths,
+                             with_score=False)
     x_last = rms_norm(x[:, -1, :], params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x_last), x_last, caches
 
@@ -231,7 +441,7 @@ def prefill_lane(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, la
     """Prefill ONE lane of a batched cache: the prompt runs through a fresh
     single-lane cache, which then overwrites lane ``lane`` in place.
     Returns (logits_last [1,V], hidden_last [1,d], caches)."""
-    dev = caches.groups[0].length.device
+    dev = caches.tensors()[0].device
     fresh = init_caches(cfg, 1, spec, device=dev)
     logits, hidden, fresh = prefill(params, cfg, inputs, fresh, spec=spec, chunk=chunk)
     write_lane(caches, fresh, lane)
@@ -241,23 +451,53 @@ def prefill_lane(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, la
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def _attn_decode(p_attn, cfg: ModelConfig, spec: CacheSpec, h, cache, positions):
+    if isinstance(cache, cache_lib.MLACache):
+        y, _, _ = mla.mla_decode(p_attn, cfg, h, cache, positions)
+    elif spec.kind == "synapse":
+        y, _, _ = synapse_lib.synapse_decode(p_attn, cfg, h, cache, positions, spec.policy)
+    else:
+        y, _, _ = attention.attention_decode_full(p_attn, cfg, h, cache, positions)
+    return y
+
+
 def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, spec: CacheSpec):
-    """One-token decode. inputs: {"tokens": [B] int32, "positions": [B]}.
-    Updates ``caches`` in place; returns (logits [B,V] f32, hidden [B,d], caches)."""
-    x = _embed(params, cfg, inputs["tokens"])[:, None, :]
+    """One-token decode. inputs: {"tokens": [B] int32} or {"embeds": [B,d]},
+    and "positions": [B] (or [B,3] for M-RoPE). Updates ``caches`` in place;
+    returns (logits [B,V] f32, hidden [B,d], caches). The shared block's
+    decode takes no LoRA, as in the reference."""
+    assert not cfg.is_encoder_only, "encoder-only archs have no decode/prefill"
+    x = _inputs(params, cfg, inputs)[:, None, :]
     positions = inputs["positions"]
-    for g, grp in enumerate(cfg.layer_groups()):
-        pg, cg = params["groups"][g], caches.groups[g]
-        for i in range(grp.count):
-            p_layer = _layer(pg, i)
-            cache = layer_cache(cg, i)
-            h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-            if spec.kind == "synapse":
-                y, _, _ = synapse_lib.synapse_decode(p_layer["attn"], cfg, h, cache, positions, spec.policy)
+    groups = cfg.layer_groups()
+    for seg in build_segments(cfg):
+        grp, pg, cg = groups[seg.group], params["groups"][seg.group], caches.groups[seg.group]
+        for i in range(seg.start, seg.start + seg.count):
+            p_layer, cache = _layer(pg, i), layer_cache(cg, i)
+            if grp.kind == "attn":
+                h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+                x = _radd(x, _attn_decode(p_layer["attn"], cfg, spec, h, cache, positions))
+                h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
+                y = moe.moe_forward(p_layer["mlp"], cfg, h)[0] if grp.mlp == "moe" else swiglu(p_layer["mlp"], h)
+                x = _radd(x, y)
+            elif grp.kind == "mamba2":
+                h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
+                y, state = mamba2.mamba2_decode(p_layer["mixer"], cfg, h, cache)
+                cache_lib.copy_into(cache, state)
+                x = _radd(x, y)
             else:
-                y, _, _ = attention.attention_decode_full(p_layer["attn"], cfg, h, cache, positions)
-            x = _radd(x, y)
-            h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
-            x = _radd(x, swiglu(p_layer["mlp"], h))
+                h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+                y, state = rwkv6.rwkv6_tmix_decode(p_layer["tmix"], cfg, h, cache)
+                x = _radd(x, y)
+                h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
+                y, state = rwkv6.rwkv6_cmix_decode(p_layer["cmix"], cfg, h, state)
+                cache_lib.copy_into(cache, state)
+                x = _radd(x, y)
+        if seg.shared_after >= 0:
+            sp = params["shared_attn"]
+            h = rms_norm(x, sp["ln1"], cfg.norm_eps)
+            x = _radd(x, _attn_decode(sp["attn"], cfg, spec, h, layer_cache(caches.shared, seg.shared_after), positions))
+            h = rms_norm(x, sp["ln2"], cfg.norm_eps)
+            x = _radd(x, swiglu(sp["mlp"], h))
     hidden = rms_norm(x[:, 0, :], params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, hidden), hidden, caches

@@ -74,39 +74,47 @@ class Request:
     decoder: object = field(default=None, repr=False)
 
 
+# per cursor-indexed cache kind: the tensors a decode step writes at each
+# lane's cursor (the score row is rescaled whole and kept whole)
+_SLOT_FIELDS = {cache_lib.FullCache: ("k", "v", "pos"), cache_lib.MLACache: ("ckv", "krope")}
+
+
 def _undo_record(caches: model_lib.ModelCaches) -> list:
-    """What one in-place decode step will change, copied: per full cache
-    the length cursors, the score rows and the k/v/pos slot at each lane's
-    cursor; per synapse cache every tensor."""
+    """What one in-place decode step will change, copied: per full or MLA
+    cache (the groups' and the shared block's) the length cursors, the
+    score rows and the slot at each lane's cursor; per synapse cache and
+    recurrent state every tensor."""
     rec = []
-    for c in caches.groups:
-        if isinstance(c, cache_lib.FullCache):
-            slot = c.length.clamp(max=c.capacity - 1).long()  # [L, B]
-            L, B = slot.shape
-            li = torch.arange(L, device=slot.device)[:, None]
-            bi = torch.arange(B, device=slot.device)[None, :]
-            rows = tuple(a[li, bi, slot].clone() for a in (c.k, c.v, c.pos))
-            rec.append((slot, rows, c.score.clone(), c.length.clone()))
-        else:
+    for c in caches.parts():
+        fields = _SLOT_FIELDS.get(type(c))
+        if fields is None:
             rec.append([a.clone() for a in cache_lib.tensors(c)])
+            continue
+        slot = c.length.clamp(max=c.capacity - 1).long()  # [L, B]
+        L, B = slot.shape
+        li = torch.arange(L, device=slot.device)[:, None]
+        bi = torch.arange(B, device=slot.device)[None, :]
+        rows = tuple(getattr(c, f)[li, bi, slot].clone() for f in fields)
+        rec.append((slot, rows, c.score.clone(), c.length.clone()))
     return rec
 
 
 def _undo(caches: model_lib.ModelCaches, rec: list) -> None:
     """In place: the caches as they were when ``rec`` was taken."""
-    for c, r in zip(caches.groups, rec):
-        if isinstance(c, cache_lib.FullCache):
-            slot, rows, score, length = r
-            L, B = slot.shape
-            li = torch.arange(L, device=slot.device)[:, None]
-            bi = torch.arange(B, device=slot.device)[None, :]
-            for a, row in zip((c.k, c.v, c.pos), rows):
-                a[li, bi, slot] = row
-            c.score.copy_(score)
-            c.length.copy_(length)
-        else:
+    for c, r in zip(caches.parts(), rec):
+        fields = _SLOT_FIELDS.get(type(c))
+        if fields is None:
             for a, b in zip(cache_lib.tensors(c), r):
                 a.copy_(b)
+            continue
+        slot, rows, score, length = r
+        L, B = slot.shape
+        li = torch.arange(L, device=slot.device)[:, None]
+        bi = torch.arange(B, device=slot.device)[None, :]
+        for f, row in zip(fields, rows):
+            getattr(c, f)[li, bi, slot] = row
+        c.score.copy_(score)
+        c.length.copy_(length)
 
 
 class BatchServer:
@@ -130,6 +138,7 @@ class BatchServer:
         ``store`` holds parked requests (a fresh warm-only store by
         default); ``wake_deadline_s`` bounds every unpark's promotion unless
         the call names its own deadline."""
+        model_lib.check_servable(cfg, "BatchServer")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"the weights are on {params['embed'].device}, the server runs on {self.device}")

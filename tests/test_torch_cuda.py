@@ -34,6 +34,15 @@ SHAPES = [
     (2, 8, 2, 64, 1),        # one key: a cluster of one CTA, a one-key tile
     (2, 8, 2, 64, 33),       # two ranges of 16 and 17 keys; a ragged tile
     (2, 16, 8, 64, 4096),    # Hkv = 8 at the longest T: streamed K/V chunks
+    # the other families' (H, Hkv, D) at their side decode's T = K + W + J
+    # and a spawn's T = 1024
+    (8, 32, 32, 64, 136),    # zamba2's shared MHA block: 4 KB bf16 key rows, one p.V slice
+    (6, 32, 32, 64, 1024),   # zamba2's spawn: 6 invocations x 1 lane, 32-key (bf16) / 16-key (f32) tiles
+    (8, 32, 4, 128, 136),    # qwen3-moe: G = 8
+    (48, 32, 4, 128, 1024),
+    (8, 32, 8, 128, 136),    # qwen3-4b, qwen3-8b
+    (8, 64, 8, 128, 136),    # qwen2-vl-72b, qwen1.5-110b
+    (2, 64, 8, 128, 1024),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -377,3 +386,41 @@ def test_batchserver_park_unpark_bitwise_on_card(card, pipeline, tier, tmp_path)
     assert got["tier"] == tier and got["a_lane"] == 1
     assert (got["a"], got["b"]) == (never["a"], never["b"])
     assert got["guarded"] >= 1 and got["in_store"] == 0 and got["stats"]["lost_requests"] == 0
+
+
+def test_zamba2_engine_on_card_equals_the_cpu(card):
+    """Reduced zamba2 (Mamba2 layers, the shared block's stacked caches) in
+    f32: the pipelined engine on the card, every window under the sync
+    guard, against the serial engine on the CPU — the same greedy streams
+    and merges; a spawn is one landmark_score launch (the shared stack
+    folded into one sweep) and a side tick one synapse_attention launch per
+    shared invocation."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving.sampler import SamplingParams
+
+    ops.build_kernels()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True), compute_dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for dev in ("cpu", card):
+        eng = CortexEngine(Prism(params, cfg, device=dev), ByteTokenizer(cfg.vocab_size), n_main=1, max_side=2,
+                           main_capacity=128, inject_tokens=8, theta=-1.0, side_max_steps=8,
+                           sampling=SamplingParams(greedy=True), sync_every=4, pipeline=dev != "cpu", device=dev)
+        if dev != "cpu":
+            _smoke().guard_window_no_sync(eng)
+        ops.reset_launches()
+        eng.submit("hi [TASK: check it] ok", lane=0)
+        eng.run(48)
+        runs[dev] = (eng, ops.launch_counts())
+    (ref, _), (got, counts) = runs["cpu"], runs[card]
+    for a, b in zip(ref.mains + ref.sides, got.mains + got.sides):
+        assert b.tokens == a.tokens
+    assert [e["event"] for e in got.history] == [e["event"] for e in ref.history] == ["spawn", "merge"]
+    assert counts["landmark_score"] == 1
+    assert counts["synapse_attention"] > 0 and counts["synapse_attention"] % cfg.n_shared_attn_invocations == 0

@@ -30,7 +30,13 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.bridge", "repro_torch.core.engine", "repro_torch.kernels.ops",
             "repro_torch.memory.registry", "repro_torch.serving.server", "repro_torch.serving.frontend",
             "repro_torch.serving.transport", "repro_torch.launch.serve", "repro_torch.checkpoint.io",
-            "repro_torch.memory.store", "repro_torch.memory.faults"} <= set(mods)
+            "repro_torch.memory.store", "repro_torch.memory.faults", "repro_torch.models.mamba2",
+            "repro_torch.models.rwkv6", "repro_torch.models.moe", "repro_torch.models.mla",
+            "repro_torch.configs.zamba2_1p2b", "repro_torch.configs.deepseek_v2_236b",
+            "repro_torch.configs.hubert_xlarge", "repro_torch.configs.qwen2_vl_72b"} <= set(mods)
+    assert {m.rsplit(".", 1)[1] for m in mods if m.startswith("repro_torch.configs.")} == {
+        "zamba2_1p2b", "qwen2_vl_72b", "rwkv6_1p6b", "qwen3_moe_30b_a3b", "qwen1p5_110b", "qwen3_8b",
+        "hubert_xlarge", "deepseek_v2_236b", "qwen3_4b", "smollm_135m", "qwen25_0p5b"}
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -44,6 +50,22 @@ def test_every_module_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_import_of_jax_or_repro_anywhere_in_the_port_or_chip_smoke():
+    """Every import statement, the ones inside functions included (which
+    importing a module does not run), of ``repro_torch`` and
+    ``chip_smoke.py`` names neither JAX nor the JAX package."""
+    import ast
+
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level else [])
+            bad += [(f.name, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert len(files) > 40 and not bad, bad
 
 
 def test_tiers_run_on_the_card_hosts_packages(tmp_path):

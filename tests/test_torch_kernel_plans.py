@@ -22,6 +22,10 @@ SHAPES = [
     (1, 4, 4, 64), (2, 8, 2, 64), (2, 9, 3, 64), (3, 16, 2, 80), (1, 32, 8, 128),
     (8, 14, 2, 64), (24, 14, 2, 64), (2, 40, 2, 64), (2, 16, 8, 64),
 ]
+# the other families' (H, Hkv, D): zamba2's shared MHA block, qwen3-moe,
+# qwen3-4b/8b, qwen2-vl-72b and qwen1.5-110b; B = 8 side lanes, 36 = the
+# zamba2 spawn's 6 invocations x 6 parent lanes
+FAMILY_SHAPES = [(8, 32, 32, 64), (36, 32, 32, 64), (8, 32, 4, 128), (8, 32, 8, 128), (8, 64, 8, 128)]
 T_VALUES = [1, 31, 32, 33, 144, 1024, 4096]
 ELEM_BYTES = [4, 2]  # float32, bfloat16
 
@@ -33,9 +37,15 @@ def _assert_partition(ranges, T):
     assert all(b > a for a, b in ranges)
 
 
+def _synapse_shapes(T):
+    """SHAPES, and the family shapes where the H x range f32 scores fit
+    beside the queries (not H = 64 at T = 4096; see the refusal test)."""
+    return SHAPES + [s for s in FAMILY_SHAPES if s[1] * -(-T // 8) < 32 * 1024]
+
+
 @pytest.mark.parametrize("T", T_VALUES)
 def test_synapse_attention_plan(T):
-    for B, H, Hkv, D in SHAPES:
+    for B, H, Hkv, D in _synapse_shapes(T):
         for e in ELEM_BYTES:
             p = sa.launch_plan(B, T, H, Hkv, D, e)
             assert p.cluster == min(8, -(-T // 32)) and 1 <= p.cluster <= 8
@@ -50,7 +60,7 @@ def test_synapse_attention_plan(T):
 
 @pytest.mark.parametrize("T", T_VALUES)
 def test_landmark_score_plan(T):
-    for B, H, Hkv, D in SHAPES:
+    for B, H, Hkv, D in SHAPES + FAMILY_SHAPES:
         for e in ELEM_BYTES:
             for kc in (0, 7):
                 p = ls.launch_plan(B, T, H, Hkv, D, kc, e)
@@ -80,6 +90,31 @@ def test_plans_at_the_main_path_shapes():
     assert p.ranges == ((0, 28), (28, 57), (57, 86), (86, 115), (115, 144))
     # T = 4096, Hkv = 8, D = 128, f32: the ranges stream through the ring
     assert sa.launch_plan(1, 4096, 32, 8, 128, 4).n_chunks > 1
+
+
+def test_plans_at_the_family_shapes():
+    # zamba2's spawn: 6 invocations x 1 parent lane, T = 1024, H = Hkv = 32,
+    # D = 64: a key row of 32 kv heads is 4 KB in bf16, so a tile is 32 keys
+    # (16 in f32), one bulk copy shorter than the 32-key part; G = 1, so a
+    # thread takes one row and the block loops over 1024 (key, kv head)
+    # units with 256 threads
+    p = ls.launch_plan(6, 1024, 32, 32, 64, 0, 2)
+    assert p.block_t == 32 and p.rows == 1 and p.threads == 256 and p.grid == (32, 6)
+    assert ls.launch_plan(6, 1024, 32, 32, 64, 0, 4).block_t == 16
+    # zamba2's side decode: T = K + W + J = 136; 32 kv heads x 8 chunks fill
+    # the 256 threads, so p.V takes one key slice, and the K/V of a range
+    # stream through the ring in two chunks
+    p = sa.launch_plan(8, 136, 32, 32, 64, 2)
+    assert p.cluster == 5 and p.slices == 1 and p.n_chunks == 2 and p.chunk_keys == 24
+    assert sa.launch_plan(8, 136, 32, 32, 64, 4).slices == 1
+    # qwen3-moe: G = 8, 16-byte chunks of a 256-byte bf16 row: 8 rows a pass
+    p = ls.launch_plan(48, 1024, 32, 4, 128, 0, 2)
+    assert p.rows == 8 and p.block_t == 64
+    assert sa.launch_plan(8, 136, 32, 4, 128, 2).slices == 4
+    # qwen2-vl / qwen1.5: H = 64 fits at the side decode's T
+    assert sa.launch_plan(8, 136, 64, 8, 128, 4).n_chunks == 3
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        sa.launch_plan(8, 4096, 64, 8, 128, 2)  # 64 heads x 512 keys of f32 scores
 
 
 @pytest.mark.parametrize("plan", [
@@ -126,7 +161,8 @@ def _split_attention(q, k, v, valid, ranges, scale):
     return out.reshape(B, H, D), torch.cat(mass, dim=1)
 
 
-@pytest.mark.parametrize("shape", [(8, 14, 2, 64, 144), (2, 9, 3, 64, 321), (2, 40, 2, 64, 96), (2, 8, 2, 64, 33)])
+@pytest.mark.parametrize("shape", [(8, 14, 2, 64, 144), (2, 9, 3, 64, 321), (2, 40, 2, 64, 96), (2, 8, 2, 64, 33),
+                                   (2, 32, 32, 64, 136), (2, 32, 4, 128, 136), (2, 64, 8, 128, 136)])
 @pytest.mark.parametrize("mask", ["random", "invalid_range", "invalid_lane"])
 def test_split_softmax_matches_plain(shape, mask):
     B, H, Hkv, D, T = shape

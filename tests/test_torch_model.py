@@ -24,7 +24,6 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import injection as tinj
 from repro_torch.core import synapse as tsyn
-from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -220,11 +219,22 @@ def test_inject_synapse_matches_jax(models):
 
 
 def test_unsupported_families_raise():
-    cfg = dataclasses.replace(get_config(ARCH, reduced=True), attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmodel.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tattn.check_supported(dataclasses.replace(get_config(ARCH, reduced=True), n_experts=4, experts_per_token=2))
+    """The other families are ported: an MLA or MoE variant of the model
+    builds with the reference's layout. What is left unsupported are the
+    serving entry points for the families the reference's own cannot serve
+    (encoder-only, M-RoPE), which refuse at construction."""
+    for kw in (dict(attn_kind="mla", kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32),
+               dict(n_experts=4, experts_per_token=2)):
+        tcfg = dataclasses.replace(get_config(ARCH, reduced=True), **kw)
+        jcfg = dataclasses.replace(jax_get_config(ARCH, reduced=True), **kw)
+        shapes = lambda tree: jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")), tree)
+        ref = jax.eval_shape(lambda: jmodel.init_params(jax.random.key(0), jcfg))
+        assert shapes(bridge.params_to_numpy(tmodel.init_params(tcfg, device="cpu"))) == shapes(ref)
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), causal=False)
+    with pytest.raises(ValueError, match="encoder-only"):
+        tmodel.check_servable(cfg, "CortexEngine")
+    with pytest.raises(ValueError, match="M-RoPE"):
+        tmodel.check_servable(dataclasses.replace(get_config(ARCH, reduced=True), rope_kind="mrope"), "BatchServer")
 
 
 def test_init_params_layout_matches_reference(models):
