@@ -11,7 +11,9 @@ Phases, each failing the run on its own failure:
    each kernel against its plain PyTorch version on the card, at the main
    path's shapes, the kernel-test shapes and the edge shapes (T = 1, 33,
    4096; Hkv = 8; G = 20; a CTA range and a lane with no valid key), in
-   f32 (rtol = atol = 1e-5) and bf16 (2e-2), both ``landmark_score``
+   f32 (rtol = atol = 1e-5) and bf16 (2e-2), and ``synapse_attention`` at
+   long key sets whose scores spill to device memory (H = 64 at T = 4096,
+   H = 32 at T = 16384; one CTA's range masked), both ``landmark_score``
    branches, each twice to check that the results repeat bitwise; time the
    kernel, the plain version and a one-call library yardstick. Each
    kernel's log line also shows its time before the redesign
@@ -78,7 +80,21 @@ Phases, each failing the run on its own failure:
    functions), its kernels' launches checked — and one full-size forward
    of the encoder, hubert-xlarge. Phase 2 also holds both kernels at these
    families' (H, Hkv, D) and times them at zamba2's shapes.
-8. Print the ``kernels`` JSON line, the card's name and power limit, and
+8. Training. Qwen2.5-0.5B at full width and depth (f32 params and Adam
+   moments, bf16 compute, remat "full") trained 30 steps of 8 x 512
+   tokens on the synthetic corpus through ``repro_torch.training``: every
+   5th step's loss, the median step ms over steps 5-30, tokens/s, the
+   model-FLOP share ``train_mfu`` (6 N tokens / (step s x 989 TFLOP/s)),
+   and the peak memory with remat and, over two steps, without. It holds
+   the losses finite and falling (the last 5 steps' mean below 0.8 x the
+   first 5's), the params changed, one step's loss in bf16 within 2e-2 of
+   f32, the peak with remat below the peak without, the checkpoint round
+   trip of the trained params bitwise, a BatchServer over the restored
+   params returning tokens, and both kernels' launch counters at zero
+   while training (the train forward attends with the plain chunked
+   attention, as the reference's does). Then every other family two steps
+   at its reduced config: finite losses, params changed.
+9. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
@@ -88,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 from collections import Counter
@@ -120,6 +137,11 @@ SYN_ZAMBA = (MAIN["max_side"], 32, 32, 64, 64 + 64 + 16)
 LM_ZAMBA = (6, 32, 32, 64, MAIN["main_capacity"])
 FAMILY_SHAPES = [SYN_ZAMBA, LM_ZAMBA, (8, 32, 4, 128, 144), (48, 32, 4, 128, 1024), (8, 32, 8, 128, 144),
                  (36, 32, 8, 128, 1024), (8, 64, 8, 128, 144), (8, 64, 8, 128, 1024)]
+# long key sets, whose ranges' f32 scores spill to device memory: qwen2-vl's
+# and qwen1.5's heads at a side decode of T = 4096, and 32 heads of 64 at
+# T = 16384 (synapse_attention is timed at the first)
+SYN_LONG = (8, 64, 8, 128, 4096)
+LONG_SHAPES = [SYN_LONG, (1, 32, 2, 64, 16384)]
 # The kernels' times before their redesign, main-path shapes, bf16, L2
 # flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
 EARLIER_MS = {"synapse_attention": 0.0820, "landmark_score": 0.0592}
@@ -223,7 +245,8 @@ def check_kernels(dev):
     worst = {"synapse_attention": 0.0, "landmark_score": 0.0}
     # the main side-decode shape again, with the last CTA's range of lane 0
     # and all of lane 1 invalid
-    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES + FAMILY_SHAPES] + [(SYN_MAIN, "invalid")]
+    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES + FAMILY_SHAPES + LONG_SHAPES] + [
+        (SYN_MAIN, "invalid"), (SYN_LONG, "invalid")]
     for shape, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             t = dict(rtol=TOL[dtype], atol=TOL[dtype])
@@ -304,6 +327,18 @@ def check_kernels(dev):
             qs, ks, vs, attn_mask=mask, enable_gqa=True)),
         **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
         shape=list(SYN_ZAMBA), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
+    # and at a long key set, whose scores spill (qwen2-vl's and qwen1.5's heads)
+    B, H, Hkv, D, T = SYN_LONG
+    q, k, v, valid, _ = inputs(SYN_LONG, torch.bfloat16)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    recs["synapse_attention"]["long_t"] = dict(
+        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
+        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
+        shape=list(SYN_LONG), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
     B, H, Hkv, D, T = LM_ZAMBA
     q, k, _, _, _ = inputs(LM_ZAMBA, torch.bfloat16)
     qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
@@ -355,16 +390,15 @@ def check_reference(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
-def profile_window(eng):
-    """Profile one steady window (sides live) and print the device's busy
-    share and the kernels that take most of its time."""
+def profiled(fn) -> dict:
+    """Run ``fn`` once under torch.profiler: its wall ms, the device's busy
+    ms and idle share, and the kernels that take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    assert any(s.active for s in eng.sides)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        eng.macro_tick()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     dev = lambda e: e.self_device_time_total / 1e3  # ms
@@ -373,12 +407,17 @@ def profile_window(eng):
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev(e) for e in events)
     top = sorted(events, key=dev, reverse=True)[:10]
-    log(json.dumps({
-        "profile_window_ticks": eng.sync_every, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-        "device_events": sum(e.count for e in events),
-        "top_device_ms": [[e.key[:70], e.count, round(dev(e), 3)] for e in top],
-    }))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_events": sum(e.count for e in events),
+            "top_device_ms": [[e.key[:70], e.count, round(dev(e), 3)] for e in top]}
+
+
+def profile_window(eng):
+    """Profile one steady window (sides live) and print the device's busy
+    share and the kernels that take most of its time."""
+    assert any(s.active for s in eng.sides)
+    log(json.dumps({"profile_window_ticks": eng.sync_every, **profiled(eng.macro_tick)}))
 
 
 def kernel_plan(cfg) -> tuple[int, int]:
@@ -1468,6 +1507,174 @@ def drive_families(card: str) -> dict:
     return {"zamba2": zamba, "families": others}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen2.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30  # 4,096 tokens a step
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+TRAIN_REMAT_OFF_STEPS = 2
+TRAIN_PROMPTS = ("12+34=", "abcde|")
+FAMILY_TRAIN = dict(seq_len=64, batch_size=4, steps=2)  # every other family, reduced config
+
+
+def _train_run(state, step, batches):
+    """``step`` over ``batches``, each timed on the host clock between two
+    synchronisations. Returns (state, losses [tensors], seconds per step)."""
+    losses, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(m["loss"])
+    return state, losses, secs
+
+
+def _max_change(params, before) -> float:
+    """The largest move of any parameter from ``before`` (host copies)."""
+    from repro_torch.models import model as tm
+
+    return max(float((p.detach().cpu() - p0).abs().max()) for p, p0 in zip(tm.tree_leaves(params), before))
+
+
+def drive_training(card: str) -> dict:
+    """Phase 8: train the paper's model at full width and depth, then every
+    other family two steps at its reduced config. Returns the kernels'
+    launches while training (zero: the train forward's attention is the
+    plain chunked one, as in the reference)."""
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_to, make_batch
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as tm
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.server import BatchServer
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import init_train_state, make_eval_step, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), param_dtype="float32", compute_dtype="bfloat16",
+                              remat=True, remat_policy="full")
+    opt = AdamWConfig(**TRAIN_OPT)
+    state = init_train_state(cfg, seed=0)
+    dev = state.opt.step.device
+    n_params = sum(p.numel() for p in tm.tree_leaves(state.params))
+    before = [p.detach().cpu() for p in tm.tree_leaves(state.params)]
+    batches = [batch_to(make_batch(cfg, DataConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=i)), dev)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, losses, secs = _train_run(state, make_train_step(cfg, opt), batches)
+    counts = ops.launch_counts()
+    peak_remat = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    for i in range(0, TRAIN_STEPS, 5):
+        log(f"train {cfg.name} step {i + 1}: loss {losses[i]:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: non-finite losses {losses}")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last5 < 0.8 * first5:
+        raise AssertionError(f"training: the loss did not fall (first 5 {first5}, last 5 {last5})")
+    if any(counts.values()):
+        raise AssertionError(f"training launched the Cortex kernels: {counts}")
+    moved = _max_change(state.params, before)
+    if not moved > 0:
+        raise AssertionError("training: no parameter changed")
+    del before
+    step_s = statistics.median(secs[4:])  # steps 5..30
+    # one more step under the profiler (its result dropped): where the time goes
+    profile = profiled(lambda: make_train_step(cfg, opt)(state, batches[-1]))
+    gc.collect()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # one step's loss in bf16 against the same step in f32, on the card
+    with torch.no_grad():
+        loss16 = float(make_eval_step(cfg)(state.params, batches[0])["loss"])
+        loss32 = float(make_eval_step(dataclasses.replace(cfg, compute_dtype="float32"))(state.params, batches[0])["loss"])
+    if not abs(loss16 - loss32) <= 2e-2 * abs(loss32):
+        raise AssertionError(f"training: bf16 loss {loss16} vs f32 {loss32}")
+
+    # the peak without remat, over two steps from the same state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, off_losses, off_secs = _train_run(state, make_train_step(dataclasses.replace(cfg, remat=False), opt),
+                                         batches[:TRAIN_REMAT_OFF_STEPS])
+    peak_off = torch.cuda.max_memory_allocated()
+    if not peak_remat < peak_off:
+        raise AssertionError(f"training: the peak with remat ({peak_remat}) is not below without ({peak_off})")
+    gc.collect()
+
+    # the trained params through a checkpoint file and back, bitwise, then served
+    path = ROOT / "build" / "train_ckpt" / "chip_smoke.wcsb"
+    t = time.perf_counter()
+    ckpt.save_framed(str(path), state.params)
+    save_s, ckpt_bytes = time.perf_counter() - t, path.stat().st_size
+    t = time.perf_counter()
+    restored = ckpt.load_framed(str(path), state.params)
+    load_s = time.perf_counter() - t
+    path.unlink()
+    got, want = ckpt.tree_flatten_with_path(restored), ckpt.tree_flatten_with_path(state.params)
+    if [k for k, _ in got] != [k for k, _ in want] or not all(
+            torch.equal(a, b.detach().cpu()) for (_, a), (_, b) in zip(got, want)):
+        raise AssertionError("training: the checkpoint round trip is not bitwise")
+    del state, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    server = BatchServer(ckpt.tree_map(lambda a: a.to(dev), restored), cfg, ByteTokenizer(cfg.vocab_size),
+                         n_lanes=2, capacity=64, sampling=SamplingParams(greedy=True))
+    for prompt in TRAIN_PROMPTS:
+        server.submit(prompt, max_new_tokens=8)
+    done = server.run_until_done()
+    if len(done) != len(TRAIN_PROMPTS) or not all(r.tokens for r in done):
+        raise AssertionError(f"training: the BatchServer over the restored params returned {done}")
+    served = {r.prompt: r.tokens for r in done}
+    del server, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({
+        "training": cfg.name, "card": card, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "params": n_params, "compute": cfg.compute_dtype, "remat": cfg.remat_policy,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+        "first5_mean": first5, "last5_mean": last5, "step_ms": step_s * 1e3,
+        "step_ms_all": [x * 1e3 for x in secs], "tokens_per_s": tokens / step_s,
+        "train_mfu": 6 * n_params * tokens / (step_s * BF16_FLOP_PER_S),
+        "max_memory_allocated_remat_full": peak_remat, "max_memory_allocated_remat_off": peak_off,
+        "remat_off_step_ms": [x * 1e3 for x in off_secs], "remat_off_losses": torch.stack(off_losses).tolist(),
+        "loss_bf16": loss16, "loss_f32": loss32, "max_param_change": moved, "profiled_step": profile,
+        "ckpt_bytes": ckpt_bytes, "ckpt_save_s": save_s, "ckpt_load_s": load_s, "served_tokens": served,
+        "launches": counts, "phase_s": time.perf_counter() - t0}))
+
+    # every other family: two steps at its reduced config
+    ops.reset_launches()
+    for arch in ARCHS:
+        if arch == TRAIN_ARCH:
+            continue
+        t = time.perf_counter()
+        fcfg = get_config(arch, reduced=True)
+        state = init_train_state(fcfg, seed=0)
+        before = [p.detach().cpu() for p in tm.tree_leaves(state.params)]
+        batches = [batch_to(make_batch(fcfg, DataConfig(seq_len=FAMILY_TRAIN["seq_len"],
+                                                        batch_size=FAMILY_TRAIN["batch_size"], seed=i)), dev)
+                   for i in range(FAMILY_TRAIN["steps"])]
+        state, flosses, _ = _train_run(state, make_train_step(fcfg, AdamWConfig(**TRAIN_OPT)), batches)
+        flosses = torch.stack(flosses).tolist()
+        fmoved = _max_change(state.params, before)
+        if not all(math.isfinite(x) for x in flosses) or not fmoved > 0:
+            raise AssertionError(f"training {arch}: losses {flosses}, largest parameter change {fmoved}")
+        log(json.dumps({"train_family": arch, "card": card, "compute": fcfg.compute_dtype, "losses": flosses,
+                        "max_param_change": fmoved, "s": time.perf_counter() - t}))
+    family_counts = ops.launch_counts()
+    if any(family_counts.values()):
+        raise AssertionError(f"training the families launched the Cortex kernels: {family_counts}")
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1497,15 +1704,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families = drive_families(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = drive_training(card)
 
     kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
                     tiers_launches=tiers[name], zamba2_launches=families["zamba2"][name],
-                    families_launches=families["families"][name]) for name in ops.KERNELS]
+                    families_launches=families["families"][name], training_launches=training[name])
+               for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)
-        for key in ("bytes", "flops", "plan"):
-            k["zamba2"].pop(key)
+        for sub in ("zamba2", "long_t"):
+            for key in ("bytes", "flops", "plan"):
+                k.get(sub, {}).pop(key, None)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ Three layers:
   with xxh64 where those packages are installed, and stdlib zlib with crc32
   otherwise.
 * :func:`save` / :func:`load` — file wrappers over the zstd codec (atomic
-  rename on save).
+  rename on save); :func:`save_framed` / :func:`load_framed` a stored
+  (uncompressed) framed blob, which needs no optional package.
 
 Decoded leaves are CPU tensors. A template's leaves may be tensors, numpy
 arrays or :class:`LeafSpec` (shape, dtype name) records: the cold tier keeps
@@ -389,7 +390,9 @@ def _compress(raw: bytes, codec: int, level: int) -> bytes:
         _require_zstd()
         return zstandard.ZstdCompressor(level=level).compress(raw)
     if codec == CODEC_ZLIB:
-        return zlib.compress(raw, min(9, max(1, level)))
+        # level 0 stores (a valid zlib stream at memory speed); the
+        # reference clamps it to 1, which no caller of its asks for
+        return zlib.compress(raw, min(9, max(0, level)))
     raise ValueError(f"unknown blob codec {codec}")
 
 
@@ -497,12 +500,7 @@ def loads_framed(data: bytes, like, *, verify: bool = True):
 
 
 def save(path: str, tree, *, level: int = 3) -> None:
-    comp = dumps(tree, level=level)
-    tmp = path + ".tmp"
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(tmp, "wb") as f:
-        f.write(comp)
-    os.replace(tmp, path)
+    _write_atomic(path, dumps(tree, level=level))
 
 
 def load(path: str, like):
@@ -511,3 +509,27 @@ def load(path: str, like):
     with open(path, "rb") as f:
         data = f.read()
     return loads(data, like)
+
+
+def _write_atomic(path: str, data: bytes) -> None:
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def save_framed(path: str, tree) -> None:
+    """``tree`` as a framed blob at ``path`` (atomic rename), stored:
+    zlib at level 0, a valid zlib stream written at memory speed. The
+    training checkpoints go here; f32 weights hardly compress (zlib at
+    level 1 keeps over 90 % of their bytes, at a few tens of MB/s on one
+    host core), and the frame needs no optional package."""
+    _write_atomic(path, dumps_framed(tree, level=0, codec=CODEC_ZLIB))
+
+
+def load_framed(path: str, like):
+    """Restore a :func:`save_framed` file into the structure of ``like``,
+    verifying the frame first (CPU tensors)."""
+    with open(path, "rb") as f:
+        return loads_framed(f.read(), like)

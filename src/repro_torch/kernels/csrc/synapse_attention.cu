@@ -39,6 +39,18 @@
 // barrier that makes sure every peer has started is split, arrive on entry
 // and wait before the first push. No atomics and fixed summation orders,
 // so results are bitwise repeatable.
+//
+// Long key sets. A range's scores (H x n_max f32) live in shared memory
+// beside the queries while they fit; where they do not (H = 64 heads of
+// 128 wide from T ~ 3,300 in bf16, H = 32 of 64 from T ~ 10,000), the
+// SPILL instantiation keeps them in a workspace in device memory that the
+// wrapper allocates, [B, C, H, n_max] f32, one slab per CTA: the first
+// pass writes them there, the softmax rewrites them in place as p~, and
+// p.V and the mass read them back, mostly from L2 (the slab is the CTA's
+// own; __syncthreads orders a block's global accesses as it does its
+// shared ones). The cluster, the ranges, the ring and the combine are the
+// same, so the results are as repeatable. Plans whose scores fit do not
+// change.
 #include <cooperative_groups.h>
 
 #include "kv_tile.cuh"
@@ -58,7 +70,7 @@ __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <typename T>
+template <typename T, bool SPILL>
 __global__ void __launch_bounds__(THREADS) synapse_attention_kernel(
     const T* __restrict__ q,            // [B, H, D]
     const T* __restrict__ k,            // [B, T, Hkv, D]
@@ -66,6 +78,7 @@ __global__ void __launch_bounds__(THREADS) synapse_attention_kernel(
     const uint8_t* __restrict__ valid,  // [B, T]
     T* __restrict__ out,                // [B, H, D]
     float* __restrict__ mass,           // [B, T]
+    float* __restrict__ ws,             // SPILL: [B, C, H, n_max] scores; else unused
     int Tn, int Hkv, int G, int D, int n_max, int ck, int nk, int S, float scale) {
     constexpr int VEC = Chunk<T>::VEC, NSUB = VEC / 4;
     extern __shared__ __align__(128) unsigned char smem[];
@@ -81,8 +94,9 @@ __global__ void __launch_bounds__(THREADS) synapse_attention_kernel(
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);                          // q, ring stage 0, 1
     T* qraw = reinterpret_cast<T*>(smem + 32);                                   // [H, D] as copied
     float* qs = reinterpret_cast<float*>(qraw + HD);                             // [H, D] f32
-    float* sc = qs + HD;                                                         // [H, n_max] scores, then p~
-    float* red = sc + align16((size_t)H * n_max * 4) / 4;                        // [S, H, D] p~.V sums
+    // [H, n_max] scores, then p~: here, or this CTA's slab of the workspace
+    float* sc = SPILL ? ws + ((size_t)b * C + rank) * H * n_max : qs + HD;
+    float* red = qs + HD + (SPILL ? 0 : align16((size_t)H * n_max * 4) / 4);     // [S, H, D] p~.V sums
     float* ml = red + (size_t)S * HD;                                            // [2, H] m_r, l_r
     float* xs = ml + 2 * H;                                                      // [C, 2, H] peers' m, l
     float* w = xs + 2 * C * H;                                                   // [C, H] combine weights
@@ -252,22 +266,23 @@ __global__ void __launch_bounds__(THREADS) synapse_attention_kernel(
 
 // Shared-memory bytes of one CTA; the wrapper's launch plan
 // (synapse_attention.py:launch_plan) computes the same sum.
-static size_t smem_bytes(int C, int H, int Hkv, int D, int n_max, int ck, int S, int elem) {
+static size_t smem_bytes(int C, int H, int Hkv, int D, int n_max, int ck, int S, int elem, bool spill) {
     const size_t HD = (size_t)H * D, slice = (HD + C - 1) / C;
-    return 32 + HD * (elem + 4) + align16((size_t)H * n_max * 4) + S * HD * 4 + align16((size_t)(2 + 3 * C) * H * 4) +
+    return 32 + HD * (elem + 4) + (spill ? 0 : align16((size_t)H * n_max * 4)) + S * HD * 4 +
+           align16((size_t)(2 + 3 * C) * H * 4) +
            align16(C * slice * 4) + align16((size_t)n_max) + 2 * (size_t)ck * Hkv * D * elem;
 }
 
-template <typename T>
+template <typename T, bool SPILL>
 static int launch(const void* q, const void* k, const void* v, const void* valid, void* out, void* mass,
-                  int B, int Tn, int Hkv, int G, int D, int C, int n_max, int ck, int nk, int S, int smem,
-                  float scale, cudaStream_t stream) {
+                  void* ws, int B, int Tn, int Hkv, int G, int D, int C, int n_max, int ck, int nk, int S,
+                  int smem, float scale, cudaStream_t stream) {
     static bool smem_set[64] = {};
     if (D % Chunk<T>::VEC || C < 1 || C > 8 || Tn < C || n_max != (Tn + C - 1) / C || ck < 1 || S < 1 ||
         (long)nk * ck < n_max || smem > MAX_SMEM ||
-        (size_t)smem != smem_bytes(C, Hkv * G, Hkv, D, n_max, ck, S, (int)sizeof(T)))
+        (size_t)smem != smem_bytes(C, Hkv * G, Hkv, D, n_max, ck, S, (int)sizeof(T), SPILL))
         return (int)cudaErrorInvalidValue;
-    auto kern = synapse_attention_kernel<T>;
+    auto kern = synapse_attention_kernel<T, SPILL>;
     cudaError_t e = allow_max_smem(kern, smem_set);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
@@ -283,23 +298,36 @@ static int launch(const void* q, const void* k, const void* v, const void* valid
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)valid,
-                           (T*)out, (float*)mass, Tn, Hkv, G, D, n_max, ck, nk, S, scale);
+                           (T*)out, (float*)mass, (float*)ws, Tn, Hkv, G, D, n_max, ck, nk, S, scale);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
 // C (cluster size), n_max, ck (keys per ring chunk), nk (chunks per pass),
-// S (key slices of p.V) and smem come from the wrapper's launch plan.
+// S (key slices of p.V) and smem come from the wrapper's launch plan; ws is
+// the plan's [B, C, H, n_max] f32 score workspace where the scores spill,
+// and null where they sit in shared memory.
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's error code.
+template <typename T>
+static int launch_dtype(const void* q, const void* k, const void* v, const void* valid, void* out, void* mass,
+                        void* ws, int B, int Tn, int Hkv, int G, int D, int C, int n_max, int ck, int nk, int S,
+                        int smem, float scale, cudaStream_t stream) {
+    if (ws)
+        return launch<T, true>(q, k, v, valid, out, mass, ws, B, Tn, Hkv, G, D, C, n_max, ck, nk, S, smem, scale,
+                               stream);
+    return launch<T, false>(q, k, v, valid, out, mass, ws, B, Tn, Hkv, G, D, C, n_max, ck, nk, S, smem, scale,
+                            stream);
+}
+
 extern "C" int synapse_attention_launch(
-    const void* q, const void* k, const void* v, const void* valid, void* out, void* mass,
+    const void* q, const void* k, const void* v, const void* valid, void* out, void* mass, void* ws,
     int B, int Tn, int Hkv, int G, int D, int C, int n_max, int ck, int nk, int S, int smem,
     float scale, int dtype, void* stream) {
     if (dtype == 0)
-        return launch<float>(q, k, v, valid, out, mass, B, Tn, Hkv, G, D, C, n_max, ck, nk, S, smem, scale,
-                             (cudaStream_t)stream);
+        return launch_dtype<float>(q, k, v, valid, out, mass, ws, B, Tn, Hkv, G, D, C, n_max, ck, nk, S, smem,
+                                   scale, (cudaStream_t)stream);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(q, k, v, valid, out, mass, B, Tn, Hkv, G, D, C, n_max, ck, nk, S, smem,
-                                     scale, (cudaStream_t)stream);
+        return launch_dtype<__nv_bfloat16>(q, k, v, valid, out, mass, ws, B, Tn, Hkv, G, D, C, n_max, ck, nk, S,
+                                           smem, scale, (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "synapse_attention", "synapse_attention_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 )
 
 
@@ -40,7 +40,9 @@ class LaunchPlan:
     keys ``ranges[r]``; its K and V pass through a two-stage ring of
     ``chunk_keys`` keys, ``n_chunks`` chunks a pass (1 when the range fits
     whole); p.V splits the keys into ``slices``; ``smem`` bytes of dynamic
-    shared memory per CTA."""
+    shared memory per CTA. With ``spill`` the range's H x n_max f32 scores
+    do not fit in shared memory and live in a [B, cluster, H, n_max] f32
+    workspace in device memory instead."""
 
     cluster: int
     ranges: tuple[tuple[int, int], ...]
@@ -50,6 +52,7 @@ class LaunchPlan:
     slices: int
     smem: int
     grid: tuple[int, int]
+    spill: bool = False
     threads: int = THREADS
 
 
@@ -60,10 +63,14 @@ def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int) -> La
     same sums (``smem_bytes`` in the source) and refuses a plan that
     disagrees.
 
+    A range whose scores (H x n_max f32) do not fit in shared memory beside
+    the queries spills them to device memory (``spill``); every plan whose
+    scores fit is the same as without that branch.
+
     Raises ValueError naming the reason where the kernel cannot take the
     shape: a kv head's key row whose bytes are not a multiple of 16 (the
-    bulk copy and the 16-byte loads need it), or the scores of a key range
-    (H x range f32) that do not fit in shared memory beside the queries.
+    bulk copy and the 16-byte loads need it), or queries and p.V sums that
+    alone leave no room for one key of K/V in shared memory.
     """
     if T < 1 or B < 1:
         raise ValueError(f"synapse_attention: empty input (B={B}, T={T})")
@@ -75,9 +82,10 @@ def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int) -> La
     n_max = max(b - a for a, b in ranges)
     row = Hkv * D * elem_bytes
     chunks_per_row = D * elem_bytes // 16
-    # mbarriers, q as copied and in f32, scores, (m_r, l_r) with the peers'
-    # and the combine weights, the peers' partial outputs, valid flags
-    fixed = (32 + H * D * (elem_bytes + 4) + align16(H * n_max * 4) + align16((2 + 3 * C) * H * 4)
+    # mbarriers, q as copied and in f32, (m_r, l_r) with the peers' and the
+    # combine weights, the peers' partial outputs, valid flags; and the
+    # scores, unless they spill
+    fixed = (32 + H * D * (elem_bytes + 4) + align16((2 + 3 * C) * H * 4)
              + align16(C * -(-H * D // C) * 4) + align16(n_max))
     # p.V key slices: as many as keep all threads busy; fewer where that
     # lets the whole range sit in the ring, or else leaves chunks of at
@@ -85,18 +93,26 @@ def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int) -> La
     cands = [min(MAX_SLICES, max(1, THREADS // (Hkv * chunks_per_row)))]
     while cands[-1] > 1:
         cands.append(cands[-1] // 2)
-    room = lambda s: (MAX_SMEM - fixed - s * H * D * 4) // (2 * row)
-    slices = next((s for s in cands if room(s) >= n_max), None) or \
-        next((s for s in cands if room(s) >= KEYS_PER_CTA), 1)
-    base = fixed + slices * H * D * 4
-    chunk_keys = min(n_max, (MAX_SMEM - base) // (2 * row)) if base < MAX_SMEM else 0
+
+    def geometry(fixed):
+        room = lambda s: (MAX_SMEM - fixed - s * H * D * 4) // (2 * row)
+        slices = next((s for s in cands if room(s) >= n_max), None) or \
+            next((s for s in cands if room(s) >= KEYS_PER_CTA), 1)
+        base = fixed + slices * H * D * 4
+        return slices, base, min(n_max, (MAX_SMEM - base) // (2 * row)) if base < MAX_SMEM else 0
+
+    spill = False
+    slices, base, chunk_keys = geometry(fixed + align16(H * n_max * 4))
     if chunk_keys < 1:
-        raise ValueError(f"synapse_attention: the scores of a {n_max}-key range for H={H} heads "
-                         f"({base} bytes with the queries and p.V sums) leave no room for one key "
-                         f"of K/V in the {MAX_SMEM}-byte shared-memory limit (T={T} too long)")
+        spill = True
+        slices, base, chunk_keys = geometry(fixed)
+    if chunk_keys < 1:
+        raise ValueError(f"synapse_attention: the queries and p.V sums of H={H} heads of D={D} ({base} bytes) "
+                         f"leave no room for one key of K/V in the {MAX_SMEM}-byte shared-memory limit")
     return LaunchPlan(
         cluster=C, ranges=ranges, n_max=n_max, chunk_keys=chunk_keys,
         n_chunks=-(-n_max // chunk_keys), slices=slices, smem=base + 2 * chunk_keys * row, grid=(C, B),
+        spill=spill,
     )
 
 
@@ -140,9 +156,10 @@ def synapse_attention(q, keys, values, valid, *, scale: float | None = None):
     plan = launch_plan(B, T, H, Hkv, D, q.element_size())
     out = torch.empty_like(q)
     mass = torch.empty((B, T), dtype=torch.float32, device=q.device)
+    ws = torch.empty((B, plan.cluster, H, plan.n_max), dtype=torch.float32, device=q.device) if plan.spill else None
     KERNEL.launch(
         q.data_ptr(), keys.data_ptr(), values.data_ptr(), valid.data_ptr(), out.data_ptr(), mass.data_ptr(),
-        B, T, Hkv, H // Hkv, D, plan.cluster, plan.n_max, plan.chunk_keys, plan.n_chunks, plan.slices,
+        None if ws is None else ws.data_ptr(), B, T, Hkv, H // Hkv, D, plan.cluster, plan.n_max, plan.chunk_keys, plan.n_chunks, plan.slices,
         plan.smem, float(scale), _DTYPES[q.dtype],
     )
     return out, mass

@@ -75,8 +75,12 @@ def mamba2_forward(p, cfg: ModelConfig, x, return_state: bool = False):
     # ---- intra-chunk: Y[i] = Σ_{j<=i} exp(Λ_i-Λ_j) (C_i·B_j) X_j ----
     G = torch.einsum("bcis,bcjs->bcij", Cc, Bc)                 # [B,nC,Q,Q]
     dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # Λ_i - Λ_j: [B,nC,Q,Q,nh]
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    M = torch.where(mask[None, None, :, :, None], torch.exp(dec), torch.zeros((), device=x.device)) * G[..., None]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, None, :, :, None]
+    # above the diagonal Λ_i - Λ_j > 0 can overflow exp; its gradient would
+    # be 0 x inf = NaN there, so the masked entries are zeroed before exp
+    # too (the values are the reference's)
+    zero = torch.zeros((), device=x.device)
+    M = torch.where(mask, torch.exp(torch.where(mask, dec, zero)), zero) * G[..., None]
     y_intra = torch.einsum("bcijh,bcjhd->bcihd", M, X)
 
     # ---- chunk states: S_c = Σ_j exp(Λ_Q - Λ_j) B_j ⊗ X_j ----

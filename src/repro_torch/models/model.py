@@ -15,9 +15,11 @@ over the stacked leaves. Prefill and decode update the caches IN PLACE
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core import synapse as synapse_lib
 from repro_torch.device import resolve_device, torch_dtype
@@ -121,10 +123,11 @@ def _block_init(gen, cfg: ModelConfig, grp: LayerGroup, dtype, device):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card unless ``device="cpu"``). The layout matches the reference's
-    ``init_params``; the values do not (a different generator)."""
+    ``init_params``; the values do not (a different generator). On the
+    ``meta`` device the tree has shapes and dtypes and no storage (meta
+    tensors take no generator)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=device)
     params: dict = {}
@@ -322,13 +325,50 @@ def _rwkv6_fwd_state(p_layer, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 # full-sequence forward
 # ---------------------------------------------------------------------------
+def _layer_fwd(p_layer, x, *, cfg: ModelConfig, grp: LayerGroup, positions, chunk):
+    """One layer of a group: (x_out, aux), aux None but for attention
+    blocks (whose MLP may be a MoE)."""
+    if grp.kind == "attn":
+        x, aux, _ = _attn_block_fwd(p_layer, cfg, grp.mlp, x, positions, chunk)
+        return x, aux
+    if grp.kind == "mamba2":
+        h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
+        return _radd(x, mamba2.mamba2_forward(p_layer["mixer"], cfg, h)), None
+    return _rwkv6_fwd_state(p_layer, cfg, x)[0], None
+
+
+# the products "dots" keeps: 2-D matmuls (a [B, S, d] x [d, f] product is
+# one); batched products (einsums over heads, experts) are recomputed, as
+# JAX's checkpoint_dots_with_no_batch_dims keeps no batched dot
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` as the reference's ``jax.checkpoint`` of the layer body: while
+    autograd records (training), its activations are recomputed in the
+    backward pass, all of them ("full") or all but the 2-D matmuls'
+    outputs ("dots"). Without grad (eval, serving) it runs as it is."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def forward(params, cfg: ModelConfig, inputs: dict, *, chunk: int = 1024):
-    """Eval forward over a whole sequence (the encoder's only entry point).
+    """Training/eval forward over a whole sequence (the encoder's only
+    entry point).
 
     inputs: {"tokens": [B,S] int32} or {"embeds": [B,S,d]}, optional
     "positions" ([B,S], or [B,3,S] for M-RoPE). Returns (logits [B,S,V]
     f32, aux) with the MoE aux terms summed over layers and
-    ``hidden_last`` [B, d].
+    ``hidden_last`` [B, d]. Under autograd each layer is rematerialised as
+    ``cfg.remat`` and ``cfg.remat_policy`` say; the values are the same.
     """
     params = cast_params(params, cfg)
     x = _inputs(params, cfg, inputs)
@@ -338,16 +378,11 @@ def forward(params, cfg: ModelConfig, inputs: dict, *, chunk: int = 1024):
     aux_total = _zero_aux(x.device)
     for seg in build_segments(cfg):
         grp, pg = groups[seg.group], params["groups"][seg.group]
+        layer = _remat(cfg, functools.partial(_layer_fwd, cfg=cfg, grp=grp, positions=positions, chunk=chunk))
         for i in range(seg.start, seg.start + seg.count):
-            p_layer = _layer(pg, i)
-            if grp.kind == "attn":
-                x, aux, _ = _attn_block_fwd(p_layer, cfg, grp.mlp, x, positions, chunk)
+            x, aux = layer(_layer(pg, i), x)
+            if aux is not None:
                 aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
-            elif grp.kind == "mamba2":
-                h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
-                x = _radd(x, mamba2.mamba2_forward(p_layer["mixer"], cfg, h))
-            else:
-                x, _ = _rwkv6_fwd_state(p_layer, cfg, x)
         if seg.shared_after >= 0:
             x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, positions, seg.shared_after, chunk)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -133,17 +133,41 @@ def test_invalid_cta_range_and_lane_on_card(card, dtype):
     torch.testing.assert_close(mass[1], torch.full_like(mass[1], 14 / 144), rtol=1e-5, atol=1e-6)
 
 
+# (B, H, Hkv, D, T) whose ranges' f32 scores do not fit in shared memory
+# beside the queries: the kernel spills them to a device workspace
+LONG_T = [(8, 64, 8, 128, 4096), (1, 32, 2, 64, 16384)]
+
+
+@pytest.mark.parametrize("shape", LONG_T)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_synapse_attention_long_key_sets(card, shape, dtype):
+    """The spilled plan against the plain version, with masked keys (about
+    30 %), one CTA's whole range of lane 0 masked, and bitwise repeats."""
+    B, H, Hkv, D, T = shape
+    q, k, v, valid = _inputs(shape, dtype, card, seed=3)
+    plan = sa.launch_plan(B, T, H, Hkv, D, q.element_size())
+    assert plan.spill
+    a, b = plan.ranges[3]
+    valid[0, a:b] = False
+    before = sa.KERNEL.launches
+    out, mass = sa.synapse_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert sa.KERNEL.launches == before + 1
+    out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid)
+    torch.testing.assert_close(out.float(), out_r.float(), **_tol(dtype))
+    torch.testing.assert_close(mass, mass_r, **_tol(dtype))
+    torch.testing.assert_close(mass.sum(-1), torch.full_like(mass[:, 0], H), rtol=1e-3, atol=0)
+    assert float(mass[0, a:b].abs().max()) == 0.0
+    again = sa.synapse_attention(q, k, v, valid)
+    assert torch.equal(again[0], out) and torch.equal(again[1], mass)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, k, v, valid = _inputs((1, 4, 2, 64, 128), torch.float32, card)
     with pytest.raises(TypeError):
         sa.synapse_attention(q.half(), k.half(), v.half(), valid)
     with pytest.raises(ValueError, match="contiguous"):
         sa.synapse_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, valid)
-    # 32 heads x a 2048-key range of f32 scores alone exceed shared memory
-    long_k = torch.zeros((1, 16384, 2, 64), device=card)
-    with pytest.raises(ValueError, match="shared-memory"):
-        sa.synapse_attention(torch.zeros((1, 32, 64), device=card), long_k, long_k,
-                             torch.ones((1, 16384), dtype=torch.bool, device=card))
     # a kv head's key row of 6 x 4 = 24 bytes is no multiple of 16
     odd_q, odd_k = torch.zeros((1, 4, 6), device=card), torch.zeros((1, 8, 2, 6), device=card)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -424,3 +448,60 @@ def test_zamba2_engine_on_card_equals_the_cpu(card):
     assert [e["event"] for e in got.history] == [e["event"] for e in ref.history] == ["spawn", "merge"]
     assert counts["landmark_score"] == 1
     assert counts["synapse_attention"] > 0 and counts["synapse_attention"] % cfg.n_shared_attn_invocations == 0
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen2.5-0.5b", "zamba2-1.2b", "qwen3-moe-30b-a3b"])
+def test_reduced_train_step_on_card(card, arch):
+    """Two steps at the reduced config in bf16: finite losses, every
+    parameter leaf and Adam moment on the card, the params changed, and
+    neither Cortex kernel launched (the train forward attends plainly)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_to, make_batch
+    from repro_torch.models import model as tmodel
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import init_train_state, make_train_step
+
+    cfg = get_config(arch, reduced=True)
+    state = init_train_state(cfg, seed=0, device=card)
+    before = [p.detach().clone() for p in tmodel.tree_leaves(state.params)]
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=10))
+    ops.reset_launches()
+    for i in range(2):
+        state, m = step(state, batch_to(make_batch(cfg, DataConfig(seq_len=64, batch_size=4, seed=i)), card))
+        assert torch.isfinite(m["loss"]) and m["loss"].device.type == "cuda"
+    assert ops.launch_counts() == {"synapse_attention": 0, "landmark_score": 0}
+    for tree in (state.params, state.opt.m, state.opt.v):
+        assert all(a.is_cuda for a in tmodel.tree_leaves(tree))
+    assert state.opt.step.is_cuda and int(state.step) == 2
+    assert max(float((p.detach() - p0).abs().max()) for p, p0 in zip(tmodel.tree_leaves(state.params), before)) > 0
+
+
+def test_adamw_update_on_card_equals_the_cpu(card):
+    """Three AdamW steps with clipping on the same f32 tensors on the card
+    and on the CPU: rtol 1e-5 (elementwise f32 arithmetic; the global norm
+    sums in another order)."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_adamw
+
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    params = {"groups": [{"ln1": 1 + 0.1 * f(2, 64), "w": f(2, 64, 96)}], "embed": f(512, 64), "norm": f(64)}
+    grads = [tmodel.tree_map(lambda a: 3 * f(*a.shape), params) for _ in range(3)]
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=5)
+    out = {}
+    for dev in ("cpu", card):
+        p = tmodel.tree_map(lambda a: a.to(dev), params)
+        s = init_adamw(p)
+        for g in grads:
+            p, s, m = adamw_update(cfg, p, tmodel.tree_map(lambda a: a.to(dev), g), s)
+        out[dev] = (p, s, m)
+    (p0, s0, m0), (p1, s1, m1) = out["cpu"], out[card]
+    for tree0, tree1 in ((p0, p1), (s0.m, s1.m), (s0.v, s1.v)):
+        for a, b in zip(tmodel.tree_leaves(tree0), tmodel.tree_leaves(tree1)):
+            assert b.is_cuda
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(m1["grad_norm"].cpu(), m0["grad_norm"], rtol=1e-5, atol=0)
+    assert int(s1.step) == int(s0.step) == 3

@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.memory.store", "repro_torch.memory.faults", "repro_torch.models.mamba2",
             "repro_torch.models.rwkv6", "repro_torch.models.moe", "repro_torch.models.mla",
             "repro_torch.configs.zamba2_1p2b", "repro_torch.configs.deepseek_v2_236b",
-            "repro_torch.configs.hubert_xlarge", "repro_torch.configs.qwen2_vl_72b"} <= set(mods)
+            "repro_torch.configs.hubert_xlarge", "repro_torch.configs.qwen2_vl_72b",
+            "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.trainer",
+            "repro_torch.data.pipeline", "repro_torch.launch.train", "repro_torch.examples",
+            "repro_torch.examples.train_small_lm"} <= set(mods)
     assert {m.rsplit(".", 1)[1] for m in mods if m.startswith("repro_torch.configs.")} == {
         "zamba2_1p2b", "qwen2_vl_72b", "rwkv6_1p6b", "qwen3_moe_30b_a3b", "qwen1p5_110b", "qwen3_8b",
         "hubert_xlarge", "deepseek_v2_236b", "qwen3_4b", "smollm_135m", "qwen25_0p5b"}
@@ -142,6 +145,27 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch, capsys):
                     "--request", "t:0:hello"])
     assert m["completed"] == 1 and m["backend"] == "batch"
     assert "serving on cpu: 1 completed" in capsys.readouterr().out
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """The train state, the launcher and the example need the card unless
+    asked for the CPU; the launcher refuses the reference's TPU meshes."""
+    from repro_torch.examples import train_small_lm
+    from repro_torch.launch import train
+    from repro_torch.training.trainer import init_train_state
+
+    _no_card(monkeypatch)
+    cfg = get_config("smollm-135m", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg)
+    assert init_train_state(cfg, device="cpu").opt.step.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_small_lm.main(["--steps", "1"])
+    for mesh in ("single", "multi"):
+        with pytest.raises(SystemExit, match="ROADMAP item 12"):
+            train.main(["--device", "cpu", "--steps", "1", "--mesh", mesh])
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():

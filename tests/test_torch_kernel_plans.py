@@ -39,7 +39,7 @@ def _assert_partition(ranges, T):
 
 def _synapse_shapes(T):
     """SHAPES, and the family shapes where the H x range f32 scores fit
-    beside the queries (not H = 64 at T = 4096; see the refusal test)."""
+    beside the queries (not H = 64 at T = 4096; see the long-T test)."""
     return SHAPES + [s for s in FAMILY_SHAPES if s[1] * -(-T // 8) < 32 * 1024]
 
 
@@ -56,6 +56,7 @@ def test_synapse_attention_plan(T):
             assert (p.n_chunks - 1) * p.chunk_keys < p.n_max
             assert 1 <= p.slices <= 8 and p.slices * Hkv * (D * e // 16) <= max(256, Hkv * (D * e // 16))
             assert p.smem <= SMEM_LIMIT
+            assert not p.spill  # these ranges' scores fit in shared memory
 
 
 @pytest.mark.parametrize("T", T_VALUES)
@@ -113,8 +114,11 @@ def test_plans_at_the_family_shapes():
     assert sa.launch_plan(8, 136, 32, 4, 128, 2).slices == 4
     # qwen2-vl / qwen1.5: H = 64 fits at the side decode's T
     assert sa.launch_plan(8, 136, 64, 8, 128, 4).n_chunks == 3
-    with pytest.raises(ValueError, match="shared-memory limit"):
-        sa.launch_plan(8, 4096, 64, 8, 128, 2)  # 64 heads x 512 keys of f32 scores
+    # ... and at T = 4096 its 64 heads x 512 keys of f32 scores (128 KB)
+    # spill to device memory: the K/V stream through the ring in 26-key chunks
+    p = sa.launch_plan(8, 4096, 64, 8, 128, 2)
+    assert p.spill and p.cluster == 8 and p.n_max == 512 and p.slices == 1
+    assert p.chunk_keys == 26 and p.n_chunks == 20 and p.smem <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("plan", [
@@ -128,11 +132,32 @@ def test_plans_refuse_misaligned_rows(plan, D, e):
         plan(D, e)
 
 
-def test_synapse_plan_refuses_ranges_whose_scores_do_not_fit():
-    with pytest.raises(ValueError, match="shared-memory limit"):
-        sa.launch_plan(1, 16384, 32, 2, 64, 4)  # 32 heads x 2048 keys of f32 scores
+def test_landmark_plan_refuses_query_rows_that_do_not_fit():
     with pytest.raises(ValueError, match="shared-memory limit"):
         ls.launch_plan(1, 8, 1024, 2, 64, 0, 4)  # 1024 query rows alone
+
+
+# (B, H, Hkv, D, T) whose ranges' scores do not fit beside the queries: the
+# two largest head shapes of the families at long key sets, and the shape
+# that the plan refused before the scores could spill
+LONG_T = [(8, 64, 8, 128, 4096), (1, 32, 2, 64, 16384), (1, 64, 8, 128, 32768)]
+
+
+@pytest.mark.parametrize("shape", LONG_T)
+@pytest.mark.parametrize("e", ELEM_BYTES)
+def test_synapse_plan_spills_long_ranges(shape, e):
+    """A range whose H x n_max f32 scores leave no room for K/V takes the
+    spilled plan: the same cluster and ranges, scores in a [B, C, H, n_max]
+    workspace, and shared memory for the queries, p.V sums and the ring."""
+    B, H, Hkv, D, T = shape
+    p = sa.launch_plan(B, T, H, Hkv, D, e)
+    assert p.spill and p.cluster == 8 and p.grid == (8, B)
+    _assert_partition(p.ranges, T)
+    assert p.n_max == -(-T // 8) and 1 <= p.chunk_keys <= p.n_max
+    assert p.n_chunks * p.chunk_keys >= p.n_max > (p.n_chunks - 1) * p.chunk_keys
+    assert p.smem <= SMEM_LIMIT
+    # with the scores resident the queries, sums and one key would not fit
+    assert p.smem - 2 * p.chunk_keys * Hkv * D * e + H * p.n_max * 4 + 2 * Hkv * D * e > SMEM_LIMIT
 
 
 def _split_attention(q, k, v, valid, ranges, scale):
@@ -162,7 +187,8 @@ def _split_attention(q, k, v, valid, ranges, scale):
 
 
 @pytest.mark.parametrize("shape", [(8, 14, 2, 64, 144), (2, 9, 3, 64, 321), (2, 40, 2, 64, 96), (2, 8, 2, 64, 33),
-                                   (2, 32, 32, 64, 136), (2, 32, 4, 128, 136), (2, 64, 8, 128, 136)])
+                                   (2, 32, 32, 64, 136), (2, 32, 4, 128, 136), (2, 64, 8, 128, 136),
+                                   (1, 64, 8, 128, 4096)])  # the last one's scores spill
 @pytest.mark.parametrize("mask", ["random", "invalid_range", "invalid_lane"])
 def test_split_softmax_matches_plain(shape, mask):
     B, H, Hkv, D, T = shape
