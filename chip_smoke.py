@@ -142,6 +142,9 @@ FAMILY_SHAPES = [SYN_ZAMBA, LM_ZAMBA, (8, 32, 4, 128, 144), (48, 32, 4, 128, 102
 # T = 16384 (synapse_attention is timed at the first)
 SYN_LONG = (8, 64, 8, 128, 4096)
 LONG_SHAPES = [SYN_LONG, (1, 32, 2, 64, 16384)]
+# the long-context example's side decode: qwen3-8b's heads, one lane,
+# T = K + W + J = 32 + 32 + 4
+SYN_QWEN3 = (1, 32, 8, 128, 32 + 32 + 4)
 # The kernels' times before their redesign, main-path shapes, bf16, L2
 # flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
 EARLIER_MS = {"synapse_attention": 0.0820, "landmark_score": 0.0592}
@@ -245,7 +248,7 @@ def check_kernels(dev):
     worst = {"synapse_attention": 0.0, "landmark_score": 0.0}
     # the main side-decode shape again, with the last CTA's range of lane 0
     # and all of lane 1 invalid
-    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN] + TEST_SHAPES + FAMILY_SHAPES + LONG_SHAPES] + [
+    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN, SYN_QWEN3] + TEST_SHAPES + FAMILY_SHAPES + LONG_SHAPES] + [
         (SYN_MAIN, "invalid"), (SYN_LONG, "invalid")]
     for shape, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -339,6 +342,18 @@ def check_kernels(dev):
             qs, ks, vs, attn_mask=mask, enable_gqa=True)),
         **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
         shape=list(SYN_LONG), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
+    # and at qwen3-8b's, the long-context example's (one lane)
+    B, H, Hkv, D, T = SYN_QWEN3
+    q, k, v, valid, _ = inputs(SYN_QWEN3, torch.bfloat16)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    recs["synapse_attention"]["qwen3_8b"] = dict(
+        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
+        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
+        shape=list(SYN_QWEN3), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
     B, H, Hkv, D, T = LM_ZAMBA
     q, k, _, _, _ = inputs(LM_ZAMBA, torch.bfloat16)
     qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
@@ -1675,6 +1690,144 @@ def drive_training(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving examples at full width
+# ---------------------------------------------------------------------------
+def _run_counting_side_ticks(fn):
+    """``fn()`` with every CortexEngine's window dispatch counting the ticks
+    of windows dispatched with a side lane live (host mirrors): the engine
+    is built inside ``fn``. Returns (fn's result, side ticks)."""
+    from repro_torch.core.engine import CortexEngine
+
+    side_ticks, dispatch = [0], CortexEngine._dispatch_window
+
+    def counted(self, n):
+        side_ticks[0] += n if any(s.active for s in self.sides) else 0
+        dispatch(self, n)
+    CortexEngine._dispatch_window = counted
+    try:
+        return fn(), side_ticks[0]
+    finally:
+        CortexEngine._dispatch_window = dispatch
+
+
+def drive_council(card: str) -> dict:
+    """Phase 9a: ``python -m repro_torch.examples.council_of_agents --full``
+    in process. Returns the kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.prism import tree_bytes
+    from repro_torch.examples import council_of_agents as council
+    from repro_torch.kernels import ops
+    from repro_torch.serving.sampler import SamplingParams
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, side_ticks = _run_counting_side_ticks(lambda: council.main(["--full"]))
+    counts = ops.launch_counts()
+    eng = out.pop("engine")
+    check_launches("council", counts, eng.cfg, len(out["spawns"]), side_ticks)
+    full = get_config("qwen2.5-0.5b")
+    if (eng.cfg.n_layers, eng.cfg.d_model) != (full.n_layers, full.d_model) or len(out["spawns"]) < 2:
+        raise AssertionError(f"council: {eng.cfg.name}, {len(out['spawns'])} spawns")
+    if not out["merges"] or not all(m["accepted"] for m in out["merges"]):
+        raise AssertionError(f"council: merges {out['merges']}, expected every one accepted at theta -1")
+    rep = out["reports"][-1]
+    if rep["weight_bytes"] != tree_bytes(eng.prism.params):
+        raise AssertionError(f"council: weight_bytes {rep['weight_bytes']} != the Prism's params' bytes")
+    if not rep["context_bytes_per_agent"] < 0.2 * rep["weight_bytes"]:
+        raise AssertionError(f"council: context per agent {rep['context_bytes_per_agent']} not under 20 % of "
+                             f"the weights {rep['weight_bytes']}")
+    memory = {"memory_allocated": torch.cuda.memory_allocated(), "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    # river 0 is greedy: up to the first merge its tokens cannot depend on
+    # the other lanes' sampling
+    greedy = council.run_council(council.build_engine(eng.prism, eng.tok, sampling=SamplingParams(greedy=True),
+                                                      side_sampling=SamplingParams(greedy=True)))
+    n = out["river0_tokens_before_merge"]
+    if n <= out["river0_prompt_len"] or out["river0_tokens"][:n] != greedy["river0_tokens"][:n]:
+        raise AssertionError(f"council: river 0's first {n} tokens differ from the all-greedy run's")
+    keys = ("weight_bytes", "context_bytes_per_agent", "total_bytes", "standard_architecture_bytes",
+            "serving_weight_bytes", "n_agents", "tick")
+    log(json.dumps({
+        "example": "council_of_agents --full", "card": card, "arch": out["arch"], "layers": out["layers"],
+        "d_model": out["d_model"], "reports": [{k: r[k] for k in keys} for r in out["reports"]],
+        "spawns": len(out["spawns"]), "merges": [[m["agent"], m["accepted"], round(m["gate_score"], 4)]
+                                                for m in out["merges"]],
+        "river0_tokens_checked": n, "side_ticks": side_ticks, "ticks": out["ticks"],
+        "ms_per_tick": out["ms_per_tick"], "window_hist": out["stats"]["window_hist"],
+        "overlapped_drains": out["stats"]["overlapped_drains"], **memory, "launches": counts,
+        "phase_s": time.perf_counter() - t0}))
+    return counts
+
+
+def drive_long_context(card: str) -> dict:
+    """Phase 9b: ``python -m repro_torch.examples.long_context_synapse
+    --full`` in process. Returns the kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import long_context_synapse as lc
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = lc.main(["--full"])
+    counts = ops.launch_counts()
+    want = {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"]}
+    full = get_config("qwen3-8b")
+    if (out["layers"], out["d_model"], out["steps"]) != (full.n_layers, full.d_model, 300) or counts != want:
+        raise AssertionError(f"long context: {out['layers']} layers, d {out['d_model']}, {out['steps']} steps, "
+                             f"launches {counts}, expected {want}")
+    if out["memory_allocated_step10"] != out["memory_allocated_last"]:
+        raise AssertionError(f"long context: memory_allocated {out['memory_allocated_step10']} after step 10, "
+                             f"{out['memory_allocated_last']} after the last step: the cache grew")
+    if not (out["synapse_bytes"] == out["synapse_bytes_step1"] == out["synapse_bytes_last"]
+            and out["logits_finite"] and out["lm_count"] == out["spec"]["n_landmarks"]):
+        raise AssertionError(f"long context: {out}")
+    log(json.dumps({"example": "long_context_synapse --full", "card": card,
+                    **{k: v for k, v in out.items() if k != "lm_pos"},
+                    "lm_pos_span": [min(out["lm_pos"]), max(out["lm_pos"])],
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts,
+                    "phase_s": time.perf_counter() - t0}))
+    return counts
+
+
+def drive_quickstart(card: str) -> dict:
+    """Phase 9c: ``python -m repro_torch.examples.quickstart --full`` in
+    process. Returns the kernels' launches (none: a BatchServer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    out = quickstart.main(["--full"])
+    counts = ops.launch_counts()
+    reqs = out["requests"]
+    full = get_config("qwen2.5-0.5b")
+    if (out["layers"], out["d_model"]) != (full.n_layers, full.d_model) or len(reqs) != 4 or any(
+            r["status"] != "ok" or len(r["tokens"]) <= r["prompt_len"] for r in reqs) or any(counts.values()):
+        raise AssertionError(f"quickstart: {out['layers']} layers, requests {reqs}, launches {counts}")
+    log(json.dumps({"example": "quickstart --full", "card": card, "arch": out["arch"],
+                    "generated": [len(r["tokens"]) - r["prompt_len"] for r in reqs], "stats": out["stats"],
+                    "seconds": out["seconds"], "launches": counts, "phase_s": time.perf_counter() - t0}))
+    return counts
+
+
+def drive_examples(card: str) -> dict:
+    """Phase 9: the three examples at full width, each with the launch
+    counters zeroed just before it."""
+    t0 = time.perf_counter()
+    out = {"council": drive_council(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["long_context"] = drive_long_context(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["quickstart"] = drive_quickstart(card)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1707,15 +1860,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     training = drive_training(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = drive_examples(card)
 
     kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
                     tiers_launches=tiers[name], zamba2_launches=families["zamba2"][name],
-                    families_launches=families["families"][name], training_launches=training[name])
+                    families_launches=families["families"][name], training_launches=training[name],
+                    council_launches=examples["council"][name],
+                    long_context_launches=examples["long_context"][name],
+                    quickstart_launches=examples["quickstart"][name])
                for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)
-        for sub in ("zamba2", "long_t"):
+        for sub in ("zamba2", "long_t", "qwen3_8b"):
             for key in ("bytes", "flops", "plan"):
                 k.get(sub, {}).pop(key, None)
     log(json.dumps({"kernels": kernels}))

@@ -505,3 +505,89 @@ def test_adamw_update_on_card_equals_the_cpu(card):
             torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(m1["grad_norm"].cpu(), m0["grad_norm"], rtol=1e-5, atol=0)
     assert int(s1.step) == int(s0.step) == 3
+
+
+# ---------------------------------------------------------------------------
+# the card's halves of the ported fused-tick and macro-tick cases, and the
+# long-context example's constant memory
+# ---------------------------------------------------------------------------
+def _window_engine(card, n_layers=2, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving.sampler import SamplingParams
+
+    ops.build_kernels()
+    cfg = dataclasses.replace(get_config("qwen2.5-0.5b", reduced=True), compute_dtype="float32", n_layers=n_layers)
+    eng = CortexEngine(Prism(tmodel.init_params(cfg, seed=0, device=card), cfg, device=card),
+                       ByteTokenizer(cfg.vocab_size), n_main=2, max_side=2, theta=-1.0, side_max_steps=64,
+                       inject_tokens=8, sampling=SamplingParams(greedy=True), device=card, **kw)
+    eng.submit("calm words [TASK: look closer] more calm words", lane=0)
+    eng.submit("a second calm river", lane=1)
+    return eng
+
+
+def test_ticks_inside_a_window_make_no_host_sync(card):
+    """test_torch_fused_tick.py's and test_torch_macro_tick.py's no-sync
+    cases on the card: ticks 1..3 of a window and a whole window each run
+    under set_sync_debug_mode("error") as one dispatch; only the drain
+    syncs, once."""
+    eng = _window_engine(card, main_capacity=128, sync_every=4)
+    assert any(s.active for s in eng.sides)
+    for _ in range(4):
+        eng.tick()
+    base = dict(eng.stats)
+    guarded_tick = _smoke().no_sync(eng.tick)
+    for _ in range(3):
+        guarded_tick()
+    assert eng.stats["tick_dispatches"] - base["tick_dispatches"] == 3
+    assert (eng.stats["host_syncs"], eng.stats["drains"]) == (base["host_syncs"], base["drains"])
+    eng.tick()  # the 4th tick drains
+    assert eng.stats["host_syncs"] == base["host_syncs"] + 1
+    _smoke().no_sync(eng._dispatch_window)(eng.sync_every)
+    assert eng.stats["host_syncs"] == base["host_syncs"] + 1
+    assert eng.stats["macro_dispatches"] - base["macro_dispatches"] == 1
+    eng.drain()
+    assert eng.stats["host_syncs"] == base["host_syncs"] + 2
+
+
+def test_macro_window_has_no_peak_memory_growth(card):
+    """test_torch_macro_tick.py's in-place case on the card: over a window
+    with live sides, max_memory_allocated (reset just before) stays within
+    the bytes allocated before it plus a slack of a quarter of the caches'
+    bytes, where a copy of the caches would add all of them. 8 layers, so
+    one layer's working set is an eighth of the caches."""
+    eng = _window_engine(card, n_layers=8, main_capacity=1024, sync_every=8)
+    eng.run(16)  # warm: the first window's allocations are cached
+    assert any(s.active for s in eng.sides)
+    tensors = eng.state.main_caches.tensors() + eng.state.side_caches.tensors()
+    cache_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    ptrs = [t.data_ptr() for t in tensors]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    eng._dispatch_window(eng.sync_every)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - before
+    eng.drain()
+    assert growth < cache_bytes / 4, (growth, cache_bytes)
+    assert [t.data_ptr() for t in tensors] == ptrs
+
+
+def test_long_context_memory_is_constant_on_card(card):
+    """The long-context example at its reduced size on the card: one
+    synapse_attention launch per layer and step, memory_allocated the same
+    after step 10 and after the last, the cache's bytes constant."""
+    from repro_torch.examples import long_context_synapse
+
+    ops.build_kernels()
+    ops.reset_launches()
+    out = long_context_synapse.main(["--device", "cuda"])
+    assert ops.launch_counts() == {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"]}
+    assert out["memory_allocated_step10"] == out["memory_allocated_last"] > 0
+    assert out["synapse_bytes"] == out["synapse_bytes_step1"] == out["synapse_bytes_last"]
+    assert out["logits_finite"] and out["lm_count"] == out["spec"]["n_landmarks"]

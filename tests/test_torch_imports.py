@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.hubert_xlarge", "repro_torch.configs.qwen2_vl_72b",
             "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.trainer",
             "repro_torch.data.pipeline", "repro_torch.launch.train", "repro_torch.examples",
-            "repro_torch.examples.train_small_lm"} <= set(mods)
+            "repro_torch.examples.train_small_lm", "repro_torch.examples.quickstart",
+            "repro_torch.examples.council_of_agents", "repro_torch.examples.long_context_synapse"} <= set(mods)
     assert {m.rsplit(".", 1)[1] for m in mods if m.startswith("repro_torch.configs.")} == {
         "zamba2_1p2b", "qwen2_vl_72b", "rwkv6_1p6b", "qwen3_moe_30b_a3b", "qwen1p5_110b", "qwen3_8b",
         "hubert_xlarge", "deepseek_v2_236b", "qwen3_4b", "smollm_135m", "qwen25_0p5b"}
