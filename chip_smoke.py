@@ -94,13 +94,31 @@ Phases, each failing the run on its own failure:
    while training (the train forward attends with the plain chunked
    attention, as the reference's does). Then every other family two steps
    at its reduced config: finite losses, params changed.
-9. Print the ``kernels`` JSON line, the card's name and power limit, and
+9. The reference's three serving examples at full width, in process
+   (``drive_examples``: the council of agents, the long-context synapse
+   decode on qwen3-8b, the quickstart).
+10. The lane group on the card: a NCCL ``LaneMesh`` of one rank, made in
+   process from a FileStore under ``build/`` and destroyed at the end.
+   Phase 4's workload on ``CortexEngine(mesh=...)``, Qwen2.5-0.5B at full
+   width and depth in bf16, against a ``mesh=None`` engine with the same
+   seed: river and side streams, spawns, merges and gate scores bitwise,
+   though the lane run hibernates two sides mid-decode and wakes them into
+   each other's lanes; ``landmark_score`` launched once per spawn and
+   ``synapse_attention`` once per layer and side tick (``piece_attend``'s
+   local path); one window's dispatch, ring gather and ring copy under
+   ``set_sync_debug_mode("error")``, one all-gather per drain; the peak
+   memory before the swap within the gathered ring buffer's bytes of the
+   plain run's. Then ``BatchServer(mesh=..., n_lanes=4)`` on both loops,
+   bitwise the ``mesh=None`` server. Prints ms per virtual tick, tokens/s
+   and memory of both engines.
+11. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1828,6 +1846,236 @@ def drive_examples(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the lane group on one card
+# ---------------------------------------------------------------------------
+LANE_SWAP_AFTER = 3   # windows after the second before the peak is read and two sides swap lanes
+LANE_BATCH_TOKENS = 32
+
+
+@contextlib.contextmanager
+def lane_group(path: Path):
+    """A lane group of one rank over NCCL, made in this process from a
+    FileStore at ``path``; destroyed, and the file removed, on exit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_lane_mesh
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(path), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        yield make_lane_mesh(1)
+    finally:
+        dist.destroy_process_group()
+        path.unlink(missing_ok=True)
+
+
+def lane_run(prism, tok, mesh, *, engine_kw=MAIN, prompt=PROMPT, timed: int = 0, swap: bool = False,
+             guard: str | None = "one", profile: bool = False) -> dict:
+    """Phase 4's workload on ``CortexEngine(mesh=mesh)``, one ``run`` of
+    ``sync_every`` ticks a window: two windows, then ``timed`` timed
+    windows and windows until every side has merged. ``guard="one"``: on a
+    lane group the second window (the first's drain sets up the group's
+    communicator) runs its dispatch, its ring all-gather and its ring copy
+    under ``set_sync_debug_mode("error")`` (``guard_window_no_sync``);
+    ``guard="every"``: every window after the first, on either engine (the
+    guard itself slows the host: ``tools/lane_tick_ab.py``); None: no
+    window. With ``profile`` the window after the timed ones runs under
+    ``torch.profiler`` (and is not timed). After
+    ``LANE_SWAP_AFTER`` windows the peak memory is read and, with ``swap``,
+    the first two sides are hibernated and woken at once into each other's
+    lanes. Launch counters are zeroed before the submit. Returns the streams
+    by agent, the spawns and merges (gate scores), the side ticks, the
+    launches, the ring gathers under the guard, the window times and that
+    peak."""
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.sampler import SamplingParams
+
+    gc.collect()  # an earlier run's engine (a reference cycle) must not count in this one's peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = CortexEngine(prism, tok, sampling=SamplingParams(greedy=True), mesh=mesh, **engine_kw)
+    side_ticks = _count_side_ticks(eng)
+    owned, spawn_lane = [0], eng._spawn_lane
+
+    def counted_spawn(parent, side):  # the spawns this rank compresses: into a side lane it holds
+        owned[0] += eng._lanes.local(side) is not None
+        spawn_lane(parent, side)
+    eng._spawn_lane = counted_spawn
+    W = eng.sync_every
+    ops.reset_launches()
+    eng.submit(prompt, lane=0)
+    if sum(e["event"] == "spawn" for e in eng.history) < (2 if swap else 1):
+        raise AssertionError(f"lane run: the prompt spawned too few sides, history={eng.history}")
+    eng.run(W)
+    unguarded = eng.stats.get("ring_gathers")
+    if guard == "one" and mesh is not None:
+        methods = {k: eng.__dict__.get(k) for k in ("_dispatch_window", "_prefetch_rings", "_postprocess")}
+        guard_window_no_sync(eng)
+        eng.run(W)
+        for k, fn in methods.items():  # the wrappers go: the timed windows run as the plain engine's
+            if fn is None:
+                delattr(eng, k)
+            else:
+                setattr(eng, k, fn)
+    else:
+        if guard == "every":
+            guard_window_no_sync(eng)
+        eng.run(W)
+    guarded = None if mesh is None or guard is None else eng.stats["ring_gathers"] - unguarded
+    prof = None
+    window_s, window_tokens, peak_before_swap, lanes = [], [], None, None
+    for i in range(64):
+        if not any(s.active for s in eng.sides):
+            break
+        if i == LANE_SWAP_AFTER:
+            torch.cuda.synchronize()
+            peak_before_swap = torch.cuda.max_memory_allocated()
+        if swap and i == LANE_SWAP_AFTER:
+            a, b = [s for s in eng.sides if s.active][:2]
+            lanes = {a.agent_id: a.lane, b.agent_id: b.lane}
+            eng.hibernate(a.agent_id)
+            eng.hibernate(b.agent_id)
+            wb, wa = eng.wake(b.agent_id, wait=True), eng.wake(a.agent_id, wait=True)
+            if (wa.lane, wb.lane) != (lanes[b.agent_id], lanes[a.agent_id]):
+                raise AssertionError(f"lane run: the sides did not swap lanes ({lanes} -> {wa.lane}, {wb.lane})")
+        if profile and i == timed:
+            prof = profiled(lambda: eng.run(W))
+            continue
+        before = sum(len(v.tokens) for v in eng.mains + eng.sides)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run(W)
+        torch.cuda.synchronize()
+        if i < timed:
+            window_s.append(time.perf_counter() - t)
+            window_tokens.append(sum(len(v.tokens) for v in eng.mains + eng.sides) - before)
+    if any(s.active for s in eng.sides):
+        raise AssertionError("lane run: sides still live after 64 windows")
+    if guard == "every" and mesh is not None:
+        guarded = eng.stats["ring_gathers"] - unguarded
+    torch.cuda.synchronize()
+    views = {v.agent_id: list(v.tokens) for v in eng.mains + eng.sides if v.tokens}
+    steady = window_s[1:]
+    return {"streams": views, "records": [(e["event"], e["agent"], e.get("accepted"), e.get("gate_score"))
+                                          for e in eng.history if e["event"] in ("spawn", "merge")],
+            "side_ticks": side_ticks[0], "owned_spawns": owned[0], "launches": ops.launch_counts(),
+            "stats": dict(eng.stats),
+            "guarded_gathers": guarded, "lanes": lanes, "profile": prof,
+            "tick_ms": statistics.median(steady) / W * 1e3 if steady else None,
+            "tokens_per_s": sum(window_tokens[1:]) / sum(steady) if steady else None,
+            "peak_before_swap": peak_before_swap, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            # as the caching allocator holds it: in blocks of 512 bytes
+            "ring_all_bytes": 0 if eng._ring_all is None else
+            -(-eng._ring_all.numel() * eng._ring_all.element_size() // 512) * 512,
+            "hidden_ok": bool(torch.isfinite(eng.state.main_hidden).all())}
+
+
+def lane_batch(params, cfg, tok, mesh, pipeline: bool, n_tokens: int = LANE_BATCH_TOKENS) -> dict:
+    """``BatchServer(mesh=mesh, n_lanes=4)``, greedy, the serving phase's
+    four prompts of ``n_tokens`` tokens. Returns {prompt: tokens}."""
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.server import BatchServer
+
+    srv = BatchServer(params, cfg, tok, n_lanes=4, capacity=512, sampling=SamplingParams(greedy=True), mesh=mesh,
+                      device=params["embed"].device)
+    for _, prompt in SERVE_REQUESTS:
+        srv.submit(prompt, max_new_tokens=n_tokens)
+    done = srv.run_until_done(pipeline=pipeline)
+    if sorted(r.status for r in done) != ["ok"] * len(SERVE_REQUESTS):
+        raise AssertionError(f"lane batch: statuses {[r.status for r in done]}")
+    return {r.prompt: list(r.tokens) for r in done}
+
+
+def check_lane_runs(plain: dict, lane: dict, cfg) -> None:
+    """The lane group's run against the plain engine's: streams, spawns and
+    merges with their gate scores bitwise, one gather per drain, the second
+    window's under the sync guard, the kernels launched once
+    per spawn into a side lane this rank holds and once per layer and side
+    tick (every rank steps its block of sides), the peak (read at the same
+    window) within the gathered ring buffer of the plain run's."""
+    if lane["streams"] != plain["streams"] or lane["records"] != plain["records"]:
+        raise AssertionError("lane group: streams or spawns and merges differ from the mesh=None engine's")
+    if not any(r[0] == "merge" and r[2] for r in lane["records"]):
+        raise AssertionError(f"lane group: no accepted merge, records={lane['records']}")
+    st = lane["stats"]
+    if st["ring_gathers"] != st["drains"] or lane["guarded_gathers"] != 1:
+        raise AssertionError(f"lane group: {st['ring_gathers']} ring gathers for {st['drains']} drains, "
+                             f"{lane['guarded_gathers']} under the sync guard")
+    check_launches("lane group", lane["launches"], cfg, lane["owned_spawns"], lane["side_ticks"])
+    if lane["peak_before_swap"] is None or plain["peak_before_swap"] is None:
+        raise AssertionError(f"lane group: the sides merged within {LANE_SWAP_AFTER} windows: no peak read")
+    if lane["peak_before_swap"] > plain["peak_before_swap"] + lane["ring_all_bytes"]:
+        raise AssertionError(f"lane group: peak {lane['peak_before_swap']} > mesh=None peak "
+                             f"{plain['peak_before_swap']} + {lane['ring_all_bytes']} ring bytes")
+    if not lane["hidden_ok"]:
+        raise AssertionError("lane group: the river's hidden state is not finite")
+
+
+def drive_lane_group(card: str) -> dict:
+    """Phase 10: Qwen2.5-0.5B at full width and depth on a NCCL lane group of
+    one rank. Returns the lane run's launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tm
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-0.5b")
+    prism = Prism(tm.init_params(cfg, seed=0), cfg)
+    tok = ByteTokenizer(cfg.vocab_size)
+    with lane_group(ROOT / "build" / "lane_group.store") as mesh:
+        backend = dist.get_backend(mesh.group)
+        log(f"lane group: {cfg.name} L={cfg.n_layers} d_model={cfg.d_model} {MAIN}, world {mesh.world} over "
+            f"{backend} on {mesh.device}")
+        plain = lane_run(prism, tok, None, timed=TIMED_WINDOWS)
+        lane = lane_run(prism, tok, mesh, timed=TIMED_WINDOWS)
+        check_lane_runs(plain, lane, cfg)
+        # two sides hibernated mid-decode and woken into each other's lanes:
+        # every stream is the never-hibernated run's (the swapped sides'
+        # merges may land in the other order within a drain, which moves the
+        # later gate scores, so the merges compare by agent and verdict)
+        swapped = lane_run(prism, tok, mesh, timed=TIMED_WINDOWS, swap=True)
+        merges = lambda run: sorted(r[1:3] for r in run["records"] if r[0] == "merge")
+        if swapped["streams"] != plain["streams"] or merges(swapped) != merges(plain):
+            raise AssertionError("lane group: hibernate/wake into each other's lanes changed the streams")
+        # the plain engine once more: its windows and the lane group's were
+        # timed in turns (plain, lane, lane, plain)
+        plain2 = lane_run(prism, tok, None, timed=TIMED_WINDOWS)
+        gc.collect()
+        batch = {}
+        for pipeline in (True, False):
+            batch[pipeline] = lane_batch(prism.params, cfg, tok, mesh, pipeline)
+            if batch[pipeline] != lane_batch(prism.params, cfg, tok, None, pipeline):
+                raise AssertionError(f"lane group: the BatchServer (pipeline={pipeline}) differs from mesh=None")
+        if batch[True] != batch[False]:
+            raise AssertionError("lane group: the BatchServer's loops differ")
+    log(json.dumps({
+        "lane_group": cfg.name, "card": card, "world": 1, "backend": backend,
+        "spawns": sum(r[0] == "spawn" for r in lane["records"]),
+        "merges": sum(r[0] == "merge" for r in lane["records"]),
+        "gate_scores": [round(r[3], 4) for r in lane["records"] if r[0] == "merge"],
+        "side_ticks": lane["side_ticks"], "swapped_lanes": swapped["lanes"],
+        "ring_gathers": lane["stats"]["ring_gathers"], "drains": lane["stats"]["drains"],
+        "tick_ms": [lane["tick_ms"], swapped["tick_ms"]],
+        "tokens_per_s": [lane["tokens_per_s"], swapped["tokens_per_s"]],
+        "plain_tick_ms": [plain["tick_ms"], plain2["tick_ms"]],
+        "plain_tokens_per_s": [plain["tokens_per_s"], plain2["tokens_per_s"]],
+        "peak_before_swap": lane["peak_before_swap"], "plain_peak_before_swap": plain["peak_before_swap"],
+        "max_memory_allocated": lane["max_memory_allocated"], "ring_all_bytes": lane["ring_all_bytes"],
+        "batch_tokens": sum(len(t) for t in batch[True].values()), "launches": lane["launches"],
+        "phase_s": time.perf_counter() - t0}))
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return lane["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1863,13 +2111,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     examples = drive_examples(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lanes = drive_lane_group(card)
 
     kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
                     tiers_launches=tiers[name], zamba2_launches=families["zamba2"][name],
                     families_launches=families["families"][name], training_launches=training[name],
                     council_launches=examples["council"][name],
                     long_context_launches=examples["long_context"][name],
-                    quickstart_launches=examples["quickstart"][name])
+                    quickstart_launches=examples["quickstart"][name], lane_group_launches=lanes[name])
                for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):

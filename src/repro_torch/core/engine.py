@@ -52,6 +52,20 @@ plane: UTF-8 decoding, the router, spawns and merges.
   river when every lane is taken, ``hibernate_idle_ticks`` demotes idle
   rivers at boundaries, and :meth:`CortexEngine.adopt_hibernated` re-adopts
   the agents a recovered store holds after a restart.
+* Lane groups (``mesh=``, a :class:`~repro_torch.launch.mesh.LaneMesh`):
+  every rank is one process on one device, runs this same host code and
+  holds only its own block of ``max_side / world`` side lanes, while the
+  river is replicated and stepped on every rank. A window issues no
+  collective; each drain all-gathers the side rings into one buffer before
+  the ring copy, so every rank's router, gate, window policy and spawn and
+  merge decisions see the same tokens. A spawn compresses the (replicated)
+  parent and writes the side lane on its owner only; a merge touches the
+  river only. Hibernate and wake move a side lane through
+  ``launch.sharding.lane_gather``/``lane_scatter``; whether a wake is ready
+  is agreed over the ranks. The river samples from a generator seeded
+  alike on every rank and the local sides from one seeded per rank, so a
+  stochastic river stays equal on every rank; greedy streams equal the
+  ``mesh=None`` engine's.
 
 Caches and per-lane state are updated in place where the reference donated
 its buffers. ``stats`` keeps the reference's accounting: a window counts as
@@ -72,6 +86,8 @@ from repro_torch.core.router import CortexRouter
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ring_append
+from repro_torch.launch import sharding as lane_rules
+from repro_torch.launch.mesh import lane_axis
 from repro_torch.memory import (
     ACTIVE, HIBERNATED, LOST, REGISTERED, AgentRegistry, SnapshotLostError, SynapseStore,
 )
@@ -152,11 +168,17 @@ class TickState:
     side_ring: torch.Tensor    # [S, R] int32
     side_samp: LaneSampling
     side_caches: model_lib.ModelCaches
+    # on a lane group: the generator of this rank's stream lanes (``gen``
+    # then draws the river's only, alike on every rank); None: ``gen``
+    # draws every lane's in one pass
+    side_gen: torch.Generator | None = None
 
 
 def init_tick_state(cfg: ModelConfig, *, n_main: int, max_side: int, main_spec, side_spec,
                     ring_capacity: int, side_prompt_cap: int, main_sampling: SamplingParams,
-                    side_sampling: SamplingParams, seed: int, device) -> TickState:
+                    side_sampling: SamplingParams, seed: int, device, side_seed: int | None = None) -> TickState:
+    """``max_side`` is the stream lanes this process holds (its block on a
+    lane group); ``side_seed`` gives them a generator of their own."""
     d = cfg.d_model
     M, S, R, P = n_main, max_side, ring_capacity, side_prompt_cap
     gen = torch.Generator(device=device)
@@ -180,6 +202,7 @@ def init_tick_state(cfg: ModelConfig, *, n_main: int, max_side: int, main_spec, 
         side_ring=rings[M:],
         side_samp=lane_params(side_sampling, S, device=device),
         side_caches=model_lib.init_caches(cfg, S, side_spec, device=device),
+        side_gen=None if side_seed is None else torch.Generator(device=device).manual_seed(side_seed),
     )
 
 
@@ -211,11 +234,16 @@ def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec,
         logits_s, hidden_s, _ = model_lib.decode_step(
             params, cfg, {"tokens": in_tok, "positions": in_pos}, st.side_caches, spec=side_spec,
         )
-        samp = sample_lanes(
-            st.gen, torch.cat([logits_m, logits_s]), cat_lanes(st.main_samp, st.side_samp),
-            use_filters=use_filters, any_greedy=any_greedy,
-        )
-        samp_m, samp_s = samp[:M], samp[M:]
+        if st.side_gen is None:
+            samp = sample_lanes(
+                st.gen, torch.cat([logits_m, logits_s]), cat_lanes(st.main_samp, st.side_samp),
+                use_filters=use_filters, any_greedy=any_greedy,
+            )
+            samp_m, samp_s = samp[:M], samp[M:]
+        else:
+            samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters, any_greedy=any_greedy)
+            samp_s = sample_lanes(st.side_gen, logits_s, st.side_samp, use_filters=use_filters,
+                                  any_greedy=any_greedy)
     else:
         samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters, any_greedy=any_greedy)
 
@@ -334,6 +362,7 @@ class CortexEngine:
         store: SynapseStore | None = None,
         hibernate_idle_ticks: int | None = None,
         wake_deadline_s: float | None = None,
+        mesh=None,
         device=None,
     ):
         """Runs on ``device``, the card unless ``device="cpu"``, which must
@@ -352,10 +381,22 @@ class CortexEngine:
         ``hibernate_idle_ticks`` hibernates a river whose last submit or wake
         is that many virtual ticks old, at a window boundary;
         ``wake_deadline_s`` bounds every wake's promotion unless a wake
-        names its own deadline."""
+        names its own deadline.
+
+        ``mesh``: a lane group (``launch.mesh.make_lane_mesh``) on the
+        engine's device. Every rank of it builds this engine with the same
+        arguments and makes the same calls; the side lanes split over the
+        ranks in contiguous blocks (``max_side`` must be a multiple of the
+        world size) and the river is replicated."""
         self.device = resolve_device(device)
         if prism.device != self.device:
             raise ValueError(f"the Prism's weights are on {prism.device}, the engine runs on {self.device}")
+        if mesh is not None and lane_axis(mesh) is None:
+            raise ValueError("mesh= takes a lane group (repro_torch.launch.mesh.make_lane_mesh)")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the lane group runs on {mesh.device}, the engine on {self.device}")
+        self.mesh = mesh
+        self._lanes = lane_rules.tick_state_specs(self.mesh, max_side)
         self.prism = prism
         cfg = prism.cfg
         model_lib.check_servable(cfg, "CortexEngine")
@@ -379,9 +420,15 @@ class CortexEngine:
         # one drain window of text (8 bytes/token bounds UTF-8 expansion)
         self.router = CortexRouter(tail=max(256, 8 * self.max_window, side_prompt_cap + 16))
         self.main_spec = model_lib.CacheSpec(kind="full", capacity=main_capacity)
-        self.side_spec = side_spec or model_lib.CacheSpec(
+        side_spec = side_spec or model_lib.CacheSpec(
             kind="synapse", n_landmarks=64, window=64, n_inject=inject_tokens
         )
+        if self.mesh is not None and side_spec.policy.attend_impl == "kernel":
+            # each rank attends over its own lanes: piece_attend's local
+            # path is the same one kernel launch, so streams stay bitwise
+            side_spec = dataclasses.replace(
+                side_spec, policy=dataclasses.replace(side_spec.policy, attend_impl="piece"))
+        self.side_spec = side_spec
         self.n_main, self.max_side = n_main, max_side
         self.mains = [AgentView(f"main{i}", i, "main") for i in range(n_main)]
         self.sides = [AgentView(f"side{i}", i, "side") for i in range(max_side)]
@@ -426,23 +473,34 @@ class CortexEngine:
             # the agent is LOST; recoveries: agents re-adopted after a restart
             "wake_failures": 0, "lost_agents": 0, "recoveries": 0,
         }
+        if self.mesh is not None:
+            self.stats["ring_gathers"] = 0  # the all-gathers of the side rings: one per drain
         self._pending = 0  # ticks since last drain (== ring cursor)
         # serving-dtype weights, cast once; the Prism's copy stays the master
         self._params = model_lib.cast_params(prism.params, cfg)
         # rings hold the longest adaptive window
         self.state = init_tick_state(
-            cfg, n_main=n_main, max_side=max_side, main_spec=self.main_spec,
+            cfg, n_main=n_main, max_side=self._lanes.block, main_spec=self.main_spec,
             side_spec=self.side_spec, ring_capacity=self.max_window,
             side_prompt_cap=side_prompt_cap, main_sampling=self.sampling,
             side_sampling=self.side_sampling, seed=seed, device=self.device,
+            side_seed=None if self.mesh is None else seed * 1_000_003 + 1 + self.mesh.rank,
         )
+        # on a lane group, every rank's rings gathered at a fixed address
+        rows = (n_main + max_side, self.max_window)
+        self._ring_all = None if self.mesh is None else torch.full(rows, -1, dtype=torch.int32, device=self.device)
         # the host side of the ring copy: pinned on the card, so the copy of
         # the window in flight runs while the host works; an event marks its
         # end, and the fetch waits for that event only
         on_card = self.device.type == "cuda"
-        self._ring_host = torch.empty(self.state.rings.shape, dtype=torch.int32, pin_memory=on_card)
+        self._ring_host = torch.empty(rows, dtype=torch.int32, pin_memory=on_card)
         self._ring_event = torch.cuda.Event() if on_card else None
         self._prefetched = False
+
+    @property
+    def lane_mesh_shape(self) -> tuple[int, ...] | None:
+        """The lane group's shape when lane-sharded (recorded by the benches)."""
+        return None if self.mesh is None else (self.mesh.world,)
 
     def _sampler_flags(self, step_sides: bool) -> tuple[bool, bool]:
         """(use_filters, any_greedy) over the lanes a tick samples, from the
@@ -776,10 +834,23 @@ class CortexEngine:
         that follows the overlapped host work waits only for the rest of
         that window. Issued only where a fetch follows (the pipelined run);
         no device value is read."""
-        self._ring_host.copy_(self.state.rings, non_blocking=True)
+        self._ring_host.copy_(self._gathered_rings(), non_blocking=True)
         if self._ring_event is not None:
             self._ring_event.record()
         self._prefetched = True
+
+    def _gathered_rings(self):
+        """Every lane's ring rows on the device, in global lane order. On a
+        lane group: the river rows copied and ONE all-gather of the ranks'
+        side rows into the fixed-address buffer, both ordered on the device
+        after the window (no host sync)."""
+        if self.mesh is None:
+            return self.state.rings
+        M = self.n_main
+        self._ring_all[:M].copy_(self.state.main_ring)
+        lane_rules.gather_lanes(self.mesh, self._ring_all[M:], self.state.side_ring)
+        self.stats["ring_gathers"] += 1
+        return self._ring_all
 
     def _fetch_rings(self):
         """The pipeline's sync point: the rings on the host (ONE blocking
@@ -789,7 +860,7 @@ class CortexEngine:
             if self._ring_event is not None:
                 self._ring_event.synchronize()
         else:
-            self._ring_host.copy_(self.state.rings)
+            self._ring_host.copy_(self._gathered_rings())
         self._prefetched = False
         rings = self._ring_host.numpy().copy()
         self.stats["host_syncs"] += 1
@@ -901,10 +972,14 @@ class CortexEngine:
         return lanes
 
     def _spawn_lane(self, parent_lane: int, side_lane: int):
-        """Compress ONE parent lane into ONE side lane, in place."""
+        """Compress ONE parent lane into ONE side lane, in place, on the
+        rank that holds the side lane (the parent is on every rank)."""
+        i = self._lanes.local(side_lane)
+        if i is None:
+            return
         st = self.state
         comp = spawn_caches(self.cfg, model_lib.lane_caches(st.main_caches, parent_lane), self.side_spec)
-        model_lib.write_lane(st.side_caches, comp, side_lane)
+        model_lib.write_lane(st.side_caches, comp, i)
 
     def _spawn_side(self, parent: AgentView, task: str, sampling: SamplingParams | None = None):
         lane = self._free_side_lane()
@@ -920,14 +995,16 @@ class CortexEngine:
             ids = ids[: self.side_prompt_cap - len(close)] + close
         padded = ids + [0] * (self.side_prompt_cap - len(ids))
         self._side_sp[lane] = sampling if sampling is not None else self.side_sampling
-        st = self.state
-        st.side_prompt[lane] = torch.tensor(padded, dtype=torch.int32, device=self.device)
-        st.side_plen[lane] = len(ids)
-        st.side_step[lane] = 0
-        st.side_tok[lane] = ids[-1]
-        st.side_pos[lane] = parent.position
-        st.side_active[lane] = True
-        st.side_samp.set_lane(lane, *lane_values(self._side_sp[lane]))
+        i = self._lanes.local(lane)
+        if i is not None:
+            st = self.state
+            st.side_prompt[i] = torch.tensor(padded, dtype=torch.int32, device=self.device)
+            st.side_plen[i] = len(ids)
+            st.side_step[i] = 0
+            st.side_tok[i] = ids[-1]
+            st.side_pos[i] = parent.position
+            st.side_active[i] = True
+            st.side_samp.set_lane(i, *lane_values(self._side_sp[lane]))
         self.stats["aux_dispatches"] += 2
         s = self.sides[lane]
         if s.agent_id in self.registry and self.registry.get(s.agent_id).status != REGISTERED:
@@ -959,7 +1036,7 @@ class CortexEngine:
             return
         self.drain()
         self.window.on_event()  # composition change: back to the base window
-        self.state.side_active[lane] = False
+        self._deactivate_side(lane)
         self.stats["aux_dispatches"] += 1
         self.router.reset(s.agent_id)
         self.prism.release(s.agent_id)
@@ -1002,10 +1079,21 @@ class CortexEngine:
                 "pos": st.main_pos[lane], "hidden": st.main_hidden[lane]}
 
     def _gather_side_lane(self, lane: int) -> dict:
-        st = self.state
-        return {"caches": model_lib.lane_caches(st.side_caches, lane), "tok": st.side_tok[lane],
-                "pos": st.side_pos[lane], "step": st.side_step[lane], "plen": st.side_plen[lane],
-                "prompt": st.side_prompt[lane], "hidden": st.side_hidden[lane]}
+        """On a lane group every rank gets the lane: a broadcast from its
+        owner (the other ranks' own lane 0 gives the shapes)."""
+        i = self._lanes.local(lane)
+        j, st = 0 if i is None else i, self.state
+        snap = {"caches": model_lib.lane_caches(st.side_caches, j), "tok": st.side_tok[j],
+                "pos": st.side_pos[j], "step": st.side_step[j], "plen": st.side_plen[j],
+                "prompt": st.side_prompt[j], "hidden": st.side_hidden[j]}
+        if self.mesh is not None:
+            snap = lane_rules.lane_gather(self.mesh, snap, self._lanes.owner(lane))
+        return snap
+
+    def _deactivate_side(self, lane: int):
+        i = self._lanes.local(lane)
+        if i is not None:
+            self.state.side_active[i] = False
 
     def _evict_lru_main(self) -> str | None:
         blocked = self._lanes_with_children()
@@ -1051,7 +1139,7 @@ class CortexEngine:
             self.state.main_active[lane] = False
             self.mains[lane] = AgentView(f"main{lane}", lane, "main")
         else:
-            self.state.side_active[lane] = False
+            self._deactivate_side(lane)
             self.sides[lane] = AgentView(f"side{lane}", lane, "side")
         self.stats["aux_dispatches"] += 2
         self.stats["host_syncs"] += 1
@@ -1112,22 +1200,29 @@ class CortexEngine:
         # supervision: a dead prefetch thread fails its in-flight ticket
         # here (instead of hanging a waiter) and is respawned
         self.store.heal_worker()
-        committed, still = 0, []
-        for aid in self._pending_wakes:
-            ticket = self._wake_tickets[aid]
+        tickets = [self._wake_tickets[aid] for aid in self._pending_wakes]
+        for ticket in tickets:
             ticket.expire()  # host-side deadline: a stuck worker cannot block this
-            if not ticket.failed() and not (wait or ticket.ready()):
-                still.append(aid)
-                continue
             if wait and not ticket.ready():
                 try:
                     ticket.result(timeout=ticket.remaining())
                 except Exception:
                     pass  # the terminal state is recorded on the ticket
                 ticket.expire()
-            if ticket.failed():
-                self._fail_wake(aid, ticket.error)
+        # on a lane group every rank takes the same branch: a wake fails
+        # (or is lost) if it did on any rank, and commits once ready on all
+        failed = lane_rules.agree(self.mesh, [t.failed() for t in tickets], every=False)
+        lost = lane_rules.agree(self.mesh, [t.failed() and (isinstance(t.error, KeyError) or aid not in self.store)
+                                            for aid, t in zip(self._pending_wakes, tickets)], every=False)
+        ready = lane_rules.agree(self.mesh, [t.ready() for t in tickets], every=True)
+        committed, still = 0, []
+        for aid, ticket, f, gone, r in zip(self._pending_wakes, tickets, failed, lost, ready):
+            if f:
+                self._fail_wake(aid, ticket.error, lost=gone)
                 continue  # degraded, not pending: the engine keeps ticking
+            if not r:
+                still.append(aid)
+                continue
             if self._commit_wake(aid, ticket, mark_fresh=mark_fresh):
                 committed += 1
             else:
@@ -1135,14 +1230,14 @@ class CortexEngine:
         self._pending_wakes = still
         return committed
 
-    def _fail_wake(self, agent_id: str, err: BaseException | None) -> None:
+    def _fail_wake(self, agent_id: str, err: BaseException | None, *, lost: bool) -> None:
         """A wake ticket failed. A KeyError-family failure (quarantined
         blob, vanished file, dropped snapshot) means the context is gone:
-        the agent is LOST. Anything else (deadline, dead worker, exhausted
-        retries) leaves the snapshot intact: the agent stays HIBERNATED and
-        a later wake may succeed."""
+        the agent is LOST (``lost``, agreed over a lane group). Anything
+        else (deadline, dead worker, exhausted retries) leaves the snapshot
+        intact: the agent stays HIBERNATED and a later wake may succeed."""
         self._wake_tickets.pop(agent_id, None)
-        if isinstance(err, KeyError) or agent_id not in self.store:
+        if lost:
             self.registry.mark_lost(agent_id)
             self.store.drop(agent_id)
             self.router.reset(agent_id)
@@ -1177,12 +1272,15 @@ class CortexEngine:
             self.mains[lane] = view
         else:
             self._side_sp[lane] = sp
-            model_lib.write_lane(st.side_caches, part["caches"], lane)
-            for dst, key in ((st.side_tok, "tok"), (st.side_pos, "pos"), (st.side_step, "step"),
-                             (st.side_plen, "plen"), (st.side_prompt, "prompt"), (st.side_hidden, "hidden")):
-                dst[lane].copy_(part[key])
-            st.side_active[lane].fill_(True)
-            st.side_samp.set_lane(lane, *lane_values(sp))
+            # on a lane group every rank holds the snapshot; its owner
+            # writes the lane, which may be another rank's than before
+            i = lane_rules.lane_scatter(self._lanes, st.side_caches, part["caches"], lane)
+            if i is not None:
+                for dst, key in ((st.side_tok, "tok"), (st.side_pos, "pos"), (st.side_step, "step"),
+                                 (st.side_plen, "plen"), (st.side_prompt, "prompt"), (st.side_hidden, "hidden")):
+                    dst[i].copy_(part[key])
+                st.side_active[i].fill_(True)
+                st.side_samp.set_lane(i, *lane_values(sp))
             self.sides[lane] = view
         view.lane, view.active = lane, True
         self.stats["aux_dispatches"] += 2 if kind == "main" else 3
@@ -1248,7 +1346,7 @@ class CortexEngine:
         _, accept, score = injection.merge_thought(
             self._params, self.cfg, st.main_caches, st.main_hidden, toks, vpos, lane_mask, self.theta,
         )
-        st.side_active[s.lane] = False
+        self._deactivate_side(s.lane)
         self.stats["aux_dispatches"] += 2
         decision = torch.stack([accept.float(), score]).cpu()  # drain-time sync
         self.stats["host_syncs"] += 1
@@ -1276,7 +1374,9 @@ class CortexEngine:
                 per_agent[m.agent_id] = tree_bytes(_lane_slice(self.state.main_caches, m.lane))
         for s in self.sides:
             if s.active:
-                per_agent[s.agent_id] = tree_bytes(_lane_slice(self.state.side_caches, s.lane))
+                # every side lane has the same shapes: a lane this rank holds
+                i = self._lanes.local(s.lane)
+                per_agent[s.agent_id] = tree_bytes(_lane_slice(self.state.side_caches, 0 if i is None else i))
         # hibernated agents are absent from per_agent: their device share
         # is zero; the tiers report their host and disk bytes
         rep = self.prism.memory_report(per_agent, store_report=self.store.report(),

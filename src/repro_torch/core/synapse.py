@@ -1,7 +1,6 @@
 """The Topological Synapse (paper §3.3) — KV-cache landmark sparsification.
 
-Port of the JAX package's ``repro.core.synapse`` (local, single-device
-paths only). Two modes:
+Port of the JAX package's ``repro.core.synapse``. Two modes:
 
 1. ``compress``: one-shot hybrid density-coverage landmark selection from a
    full cache, used when a side agent spawns. The hybrid score is
@@ -10,7 +9,8 @@ paths only). Two modes:
    maxmin (farthest-point) term.
 2. ``synapse_decode``: the same policy run online during decode — a recent
    window ring plus a landmark buffer with hybrid-score eviction; the attend
-   is the ``synapse_attention`` kernel. Caches are updated IN PLACE.
+   is the ``synapse_attention`` kernel (``kernels.ops.synapse_attend``
+   routes it on the policy). Caches are updated IN PLACE.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core import synapse_sharded as sharded
+from repro_torch.core.synapse_sharded import onehot_read, onehot_write
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.attention import _project_qkv, decode_attend, rotate_one
@@ -32,6 +34,16 @@ class SynapsePolicy:
     alpha: float = 0.5        # density vs coverage blend
     score_ema: float = 0.99   # per-step decay of accumulated attention mass
     coverage_cap: float = 4.0 # maxmin distances saturate here (normalized units)
+    # decode attend: "kernel" = one fused ``synapse_attention`` launch over
+    # the concatenated [landmarks; window; inject] set (the reference's
+    # "pallas"); "piece" = ``synapse_sharded.piece_attend``, the token-sharded
+    # flash-decode, whose local path is the same launch. A live shard axis
+    # always takes "piece".
+    attend_impl: str = "kernel"
+    # axis the synapse token dims are split over (None = local); the lane
+    # group keeps it None: lanes are split across ranks, each lane's tokens
+    # stay on one
+    shard_axis: str | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -49,25 +61,6 @@ def _normed_dist(a, b):
     return torch.sqrt((diff * diff).sum(dim=-1) / d)
 
 
-def onehot_read(buf, slot):
-    """buf [B,T,...] -> [B,...] at per-lane ``slot`` (a gather; the local
-    path of the reference's one-hot read)."""
-    return buf[torch.arange(buf.shape[0], device=buf.device), slot.long()]
-
-
-def onehot_write(buf, slot, new, mask=None):
-    """In place: buf [B,T,...] <- new [B,...] at per-lane ``slot``, only on
-    lanes where ``mask`` holds (a scatter; the local path of the reference's
-    one-hot write). Slots must be in bounds."""
-    lane = torch.arange(buf.shape[0], device=buf.device)
-    slot = slot.long()
-    val = new.to(buf.dtype)
-    if mask is not None:
-        cur = buf[lane, slot]
-        val = torch.where(mask.reshape(mask.shape + (1,) * (val.dim() - 1)), val, cur)
-    buf[lane, slot] = val
-
-
 def attention_density(q, keys, valid):
     """Softmax attention mass per key, summed over heads (plain PyTorch).
 
@@ -79,7 +72,10 @@ def attention_density(q, keys, valid):
 
 def kernel_density(q, keys, valid):
     """attention_density through the ``landmark_score`` kernel's
-    density-only sweep; the valid-masked softmax is a [B,H,T] reduction."""
+    density-only sweep; the valid-masked softmax is a [B,H,T] reduction.
+    With a token axis live, the plain reduction, as in the reference."""
+    if sharded.get_shard_axis() is not None:
+        return attention_density(q, keys, valid)
     density, _ = ops.landmark_score(q, keys, None, valid)
     return density
 
@@ -244,7 +240,7 @@ def synapse_decode(
         q1,
         [(cache.lm_k, cache.lm_v), (cache.win_k, cache.win_v), (cache.inj_k, cache.inj_v)],
         [lm_valid, win_valid, inj_valid],
-        scale=scale,
+        scale=scale, policy=policy,
     )
     y = out.reshape(B, -1) @ attn_params["wo"]
 

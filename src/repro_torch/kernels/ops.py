@@ -44,10 +44,25 @@ def synapse_attention(q, keys, values, valid, *, scale: float | None = None):
     return _sa.synapse_attention(q, keys, values, valid, scale=scale)
 
 
-def synapse_attend(q, pieces, valids, *, scale: float | None = None):
-    """Attend over [landmarks; window; inject] k/v pieces: concatenate them,
-    make ONE :func:`synapse_attention` call, and split the mass back per
-    piece. Returns (out [B,H,D], masses — one [B,T_i] per piece)."""
+def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None):
+    """Attend over [landmarks; window; inject] k/v pieces, routed on the
+    ``SynapsePolicy``: a live token-shard axis (``policy.shard_axis``, or an
+    enclosing ``synapse_sharded.token_sharding`` scope) or
+    ``policy.attend_impl == "piece"`` goes to ``synapse_sharded.piece_attend``;
+    anything else concatenates the pieces, makes ONE
+    :func:`synapse_attention` call and splits the mass back per piece. With
+    no axis both are that one launch. Returns (out [B,H,D], masses — one
+    [B,T_i] per piece)."""
+    from repro_torch.core import synapse_sharded as sharded  # deferred: core imports this module
+
+    ctx = sharded.current_context()
+    p_axis = getattr(policy, "shard_axis", None)
+    if p_axis is not None:
+        ctx = sharded.ShardContext(p_axis, ctx.mesh)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if ctx.axis is not None or getattr(policy, "attend_impl", "kernel") == "piece":
+        return sharded.piece_attend(q, pieces, valids, scale, ctx=ctx)
     sizes = [k.shape[1] for k, _ in pieces]
     k_all = torch.cat([k for k, _ in pieces], dim=1)
     v_all = torch.cat([v for _, v in pieces], dim=1)

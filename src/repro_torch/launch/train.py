@@ -14,8 +14,9 @@ steps as stored framed blobs under ``--ckpt-dir``. ``--reduced`` (the
 default) is the small smoke variant of the config, ``--full`` the
 published widths.
 ``--mesh`` takes ``debug`` (one device) only: the reference's ``single``
-and ``multi`` meshes are TPU pods, and sharding across cards is ROADMAP
-item 12. :func:`main` returns the run's metrics.
+and ``multi`` meshes are TPU pods, and training across cards comes with
+the launch tooling, ROADMAP item 14. :func:`main` returns the run's
+metrics.
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.mesh != "debug":
         raise SystemExit(f"--mesh {args.mesh}: the reference's single and multi meshes are TPU pods; the port "
-                         f"trains on one device (--mesh debug), and sharding across cards is ROADMAP item 12")
+                         f"trains on one device (--mesh debug), and training across cards comes with the "
+                         f"launch tooling, ROADMAP item 14")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1), total_steps=args.steps)

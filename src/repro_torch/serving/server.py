@@ -36,6 +36,15 @@ under pressure) and the lane frees for other traffic.
 thread; the request re-enters at the next admission boundary (where nothing
 is in flight, so no undo record spans a park or an unpark) with its exact
 cache bytes and position, and its greedy continuation is unchanged.
+
+Lane groups (``mesh=``, a :class:`~repro_torch.launch.mesh.LaneMesh`): the
+request lanes split over the ranks in contiguous blocks. Every rank runs
+this same host code, decodes and samples its own lanes (from a generator
+seeded per rank) and makes one all-gather of the sampled tokens per step, so
+admission, cancels, parking and the speculative rollback work from the same
+host state everywhere. A park broadcasts the lane from its owner, so every
+rank's store holds it; an unpark writes it on its new owner, once every
+rank's prefetch is ready.
 """
 from __future__ import annotations
 
@@ -46,12 +55,14 @@ import torch
 
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device, to_device
+from repro_torch.launch import sharding as lane_rules
+from repro_torch.launch.mesh import lane_axis
 from repro_torch.memory import SynapseStore
 from repro_torch.memory.store import device_put_fn, ready_on_stream
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.sampler import SampCache, SamplingParams, sample_lanes
+from repro_torch.serving.sampler import LaneSampling, SampCache, SamplingParams, sample_lanes
 
 
 @dataclass
@@ -131,22 +142,31 @@ class BatchServer:
         seed: int = 0,
         store: SynapseStore | None = None,
         wake_deadline_s: float | None = None,
+        mesh=None,
         device=None,
     ):
         """Runs on ``device``, the card unless ``device="cpu"``; ``params``
         must already be there. Decodes in the config's compute dtype.
         ``store`` holds parked requests (a fresh warm-only store by
         default); ``wake_deadline_s`` bounds every unpark's promotion unless
-        the call names its own deadline."""
+        the call names its own deadline. ``mesh``: a lane group on the same
+        device, over whose ranks the ``n_lanes`` request lanes split (a
+        multiple of the world size); every rank makes the same calls."""
         model_lib.check_servable(cfg, "BatchServer")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"the weights are on {params['embed'].device}, the server runs on {self.device}")
+        if mesh is not None and lane_axis(mesh) is None:
+            raise ValueError("mesh= takes a lane group (repro_torch.launch.mesh.make_lane_mesh)")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the lane group runs on {mesh.device}, the server on {self.device}")
+        self.mesh = mesh
+        self._lanes = lane_rules.lane_cache_specs(self.mesh, n_lanes)
         self.params = model_lib.cast_params(params, cfg)
         self.cfg, self.tok = cfg, tokenizer
         self.sampling = sampling
         self.spec = model_lib.CacheSpec(kind=cache_kind, capacity=capacity)
-        self.caches = model_lib.init_caches(cfg, n_lanes, self.spec, device=self.device)
+        self.caches = model_lib.init_caches(cfg, self._lanes.block, self.spec, device=self.device)
         self.n_lanes = n_lanes
         self.lanes: list[Request | None] = [None] * n_lanes
         self.positions = np.zeros(n_lanes, np.int64)
@@ -159,7 +179,7 @@ class BatchServer:
         self._resume: list[tuple[Request, object]] = []  # (request, WakeTicket)
         self._put = device_put_fn(self.device)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
+        self._gen.manual_seed(seed if self.mesh is None else seed * 1_000_003 + 1 + self.mesh.rank)
         self._rid = 0
         # per-lane sampling tensors and fast-path flags, rebuilt only when
         # the lane composition changes (see SampCache)
@@ -240,8 +260,12 @@ class BatchServer:
         for lane, req in enumerate(self.lanes):
             if req is not None and req.rid == rid:
                 pos = int(self.positions[lane])
-                snap = {"caches": model_lib.lane_caches(self.caches, lane),
-                        "position": torch.tensor(pos, dtype=torch.int64)}
+                i = self._lanes.local(lane)
+                caches = model_lib.lane_caches(self.caches, 0 if i is None else i)
+                if self.mesh is not None:
+                    # every rank's store holds the lane: a broadcast from its owner
+                    caches = lane_rules.lane_gather(self.mesh, caches, self._lanes.owner(lane))
+                snap = {"caches": caches, "position": torch.tensor(pos, dtype=torch.int64)}
                 # the meta repeats the position, so the unpark reads it
                 # without waiting for the card
                 self.store.put(f"req{rid}", snap, meta={"kind": "request", "rid": rid, "position": pos})
@@ -280,25 +304,33 @@ class BatchServer:
         ``error`` set instead of raising mid-admission."""
         if self._resume:
             self.store.heal_worker()
+        # on a lane group every rank takes the same branch: a resume fails
+        # if it did on any rank, and lands once ready on all
+        agree = lambda flag, every: lane_rules.agree(self.mesh, [flag], every=every)[0]
         still = []
         for req, ticket in self._resume:
             ticket.expire()
-            if not ticket.failed():
+            failed = agree(ticket.failed(), False)
+            if not failed:
                 lane = next((i for i, r in enumerate(self.lanes) if r is None), -1)
-                if lane < 0 or not (wait or ticket.ready()):
+                if lane < 0:
                     still.append((req, ticket))
                     continue
-                if not ticket.ready():
+                if wait and not ticket.ready():
                     try:
                         ticket.result(timeout=ticket.remaining())
                     except Exception:
                         pass  # the terminal state is recorded on the ticket
                     ticket.expire()
-            if ticket.failed():
+                failed = agree(ticket.failed(), False)
+                if not failed and not agree(ticket.ready(), True):
+                    still.append((req, ticket))
+                    continue
+            if failed:
                 self._fail_resume(req, ticket.error)
                 continue
             part = ready_on_stream(*ticket.result(), self.device)
-            model_lib.write_lane(self.caches, part["caches"], lane)
+            lane_rules.lane_scatter(self._lanes, self.caches, part["caches"], lane)
             self.positions[lane] = self.store.meta_of(f"req{req.rid}")["position"]
             req.lane = lane
             self.lanes[lane] = req
@@ -316,9 +348,11 @@ class BatchServer:
             if self.lanes[lane] is None and self.queue:
                 req = self.queue.pop(0)
                 ids = self.tok.encode(req.prompt, bos=True)
-                toks = torch.tensor([ids], dtype=torch.int32, device=self.device)
-                # a fresh lane cache, prefilled, overwrites the lane
-                model_lib.prefill_lane(self.params, self.cfg, {"tokens": toks}, self.caches, lane, spec=self.spec)
+                i = self._lanes.local(lane)
+                if i is not None:
+                    toks = torch.tensor([ids], dtype=torch.int32, device=self.device)
+                    # a fresh lane cache, prefilled, overwrites the lane
+                    model_lib.prefill_lane(self.params, self.cfg, {"tokens": toks}, self.caches, i, spec=self.spec)
                 req.tokens = list(ids)
                 req.lane = lane
                 req.prompt_len = len(ids)
@@ -336,13 +370,21 @@ class BatchServer:
         """ONE batched decode and sampling pass. ``toks`` is a device tensor
         (the host's last tokens, or the previous step's sampled tokens on
         the pipelined path). Returns the sampled tokens on the device and
-        advances the occupied lanes' positions. Reads no device value."""
-        pos = to_device(self.positions, torch.int32, self.device)
+        advances the occupied lanes' positions. Reads no device value. On a
+        lane group the rank decodes its own lanes, and one all-gather
+        gathers every lane's token."""
+        own = self._lanes.span
+        pos = to_device(self.positions[own], torch.int32, self.device)
         logits, _, _ = model_lib.decode_step(
-            self.params, self.cfg, {"tokens": toks, "positions": pos}, self.caches, spec=self.spec
+            self.params, self.cfg, {"tokens": toks[own], "positions": pos}, self.caches, spec=self.spec
         )
         lanes_samp, use_filters, any_greedy = self._samp_cache.get(self._lane_params)
+        if self.mesh is not None:
+            lanes_samp = LaneSampling(lanes_samp.temperature[own], lanes_samp.top_k[own], lanes_samp.top_p[own])
         sampled = sample_lanes(self._gen, logits, lanes_samp, use_filters=use_filters, any_greedy=any_greedy)
+        if self.mesh is not None:
+            local, sampled = sampled, torch.empty(self.n_lanes, dtype=sampled.dtype, device=self.device)
+            lane_rules.gather_lanes(self.mesh, sampled, local)
         for lane, req in enumerate(self.lanes):
             if req is not None:
                 self.positions[lane] += 1

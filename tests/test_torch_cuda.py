@@ -591,3 +591,87 @@ def test_long_context_memory_is_constant_on_card(card):
     assert out["memory_allocated_step10"] == out["memory_allocated_last"] > 0
     assert out["synapse_bytes"] == out["synapse_bytes_step1"] == out["synapse_bytes_last"]
     assert out["logits_finite"] and out["lm_count"] == out["spec"]["n_landmarks"]
+
+
+# ---------------------------------------------------------------------------
+# lane groups on the card: a NCCL group of one rank, with chip_smoke.py
+# phase 10's checks at the reduced config
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def lane_mesh(tmp_path_factory):
+    """A NCCL lane group of one rank in this process (``chip_smoke.lane_group``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a NCCL lane group")
+    with _smoke().lane_group(tmp_path_factory.mktemp("lanes") / "store") as mesh:
+        yield mesh
+
+
+def _lane_setup(card):
+    from repro_torch.configs import get_config
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tmodel
+
+    ops.build_kernels()
+    cfg = get_config("qwen2.5-0.5b", reduced=True)  # bf16, the card's dtype
+    return cfg, Prism(tmodel.init_params(cfg, seed=0, device=card), cfg, device=card), ByteTokenizer(cfg.vocab_size)
+
+
+def test_lane_group_of_one_engine_equals_plain_on_card(card, lane_mesh):
+    """Phase 10's engine checks: the mesh-of-one engine's streams, spawns,
+    merges and gate scores bitwise the plain engine's; one ring all-gather
+    per drain and one in a window run under set_sync_debug_mode("error");
+    the kernels once per spawn and once per layer and side tick; the peak
+    within the gathered ring buffer of the plain run's; two sides woken into
+    each other's lanes keep every stream."""
+    cs = _smoke()
+    cfg, prism, tok = _lane_setup(card)
+    kw = dict(cs.MAIN, side_max_steps=16)
+    plain = cs.lane_run(prism, tok, None, engine_kw=kw)
+    lane = cs.lane_run(prism, tok, lane_mesh, engine_kw=kw)
+    cs.check_lane_runs(plain, lane, cfg)
+    swapped = cs.lane_run(prism, tok, lane_mesh, engine_kw=kw, swap=True)
+    assert swapped["streams"] == plain["streams"]
+    assert set(swapped["lanes"].values()) == {0, 1}
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_lane_group_batch_server_on_card(card, lane_mesh, pipeline):
+    cs = _smoke()
+    cfg, prism, tok = _lane_setup(card)
+    got = cs.lane_batch(prism.params, cfg, tok, lane_mesh, pipeline, n_tokens=12)
+    assert got == cs.lane_batch(prism.params, cfg, tok, None, pipeline, n_tokens=12)
+
+
+def test_piece_attend_local_path_launches_the_kernel_once(card):
+    """With no token axis, piece_attend is one synapse_attention launch over
+    the concatenated pieces: bitwise the kernel's own result."""
+    from repro_torch.core import synapse_sharded as sh
+
+    ops.build_kernels()
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((8, 14, 64), generator=g, device=card).to(torch.bfloat16)
+    pieces = [tuple(torch.randn((8, T, 2, 64), generator=g, device=card).to(torch.bfloat16) for _ in range(2))
+              for T in (64, 64, 16)]
+    valids = [torch.rand((8, T), generator=g, device=card) < 0.8 for T in (64, 64, 16)]
+    before = sa.KERNEL.launches
+    out, masses = sh.piece_attend(q, pieces, valids, 0.125)
+    torch.cuda.synchronize()
+    assert sa.KERNEL.launches == before + 1
+    want_out, want_mass = ops.synapse_attention(q, torch.cat([k for k, _ in pieces], 1),
+                                                torch.cat([v for _, v in pieces], 1), torch.cat(valids, 1),
+                                                scale=0.125)
+    assert torch.equal(out, want_out) and torch.equal(torch.cat(masses, 1), want_mass)
+
+
+def test_make_lane_mesh_refuses_gloo_for_a_cuda_mesh(card, lane_mesh):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_lane_mesh
+
+    gloo = dist.new_group(backend="gloo")
+    with pytest.raises(ValueError, match="needs nccl"):
+        make_lane_mesh(group=gloo, device=card)
+    with pytest.raises(ValueError, match="needs gloo"):
+        make_lane_mesh(group=lane_mesh.group, device="cpu")
+    assert lane_mesh.world == 1 and dist.get_backend(lane_mesh.group) == "nccl"

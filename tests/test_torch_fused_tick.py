@@ -18,20 +18,33 @@ Ported cases:
 * ``test_lifecycle_with_batched_drain``;
 * ``test_router_feed_incremental_exactly_once``.
 
-Not ported here: ``test_synapse_decode_pallas_matches_piece`` needs the
-sharded fallback ``synapse_sharded.piece_attend``, which comes with lane
-sharding (ROADMAP queue 1, item 12). The engine's streams against the JAX
-engine's are held by ``tests/test_torch_engine.py``; these cases hold the
-tick against the port's per-step functions, as the reference's do.
+* ``test_synapse_decode_pallas_matches_piece``: the fused attend
+  (``attend_impl="kernel"``, the reference's ``"pallas"``) and
+  ``piece_attend`` give the same decode output, cache update and landmark
+  mass (bitwise in the port: both are one ``synapse_attention`` call), and
+  the reference's ``"piece"`` decode on the same numpy inputs within 1e-5.
+
+The engine's streams against the JAX engine's are held by
+``tests/test_torch_engine.py``; these cases hold the tick against the
+port's per-step functions, as the reference's do.
 """
 import dataclasses
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from test_torch_pipeline import _NoHostReads
 from test_torch_families import _one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
+from repro.configs import get_config as jax_get_config
+from repro.core import synapse as jsynapse
+from repro.models import attention as jattention
+from repro.models import cache as jcache
+from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.core import synapse as tsynapse
 from repro_torch.core.engine import CortexEngine
 from repro_torch.core.prism import Prism
 from repro_torch.core.router import CortexRouter
@@ -160,3 +173,41 @@ def test_router_feed_incremental_exactly_once():
     assert r.feed("a", "") == []  # the tail rescan does not fire again
     assert r.feed("a", " more text") == []
     assert [t.kind for t in r.feed("a", " [DONE]")] == ["done"]
+
+
+def test_synapse_decode_pallas_matches_piece():
+    """The fused attend (default) and piece_attend give the same decode
+    output and cache update; the reference's piece decode agrees."""
+    cfg = dataclasses.replace(get_config("qwen2.5-0.5b", reduced=True), compute_dtype="float32")
+    jcfg = dataclasses.replace(jax_get_config("qwen2.5-0.5b", reduced=True), compute_dtype="float32")
+    jparams = jattention.attn_init(jax.random.key(0), jcfg, jnp.float32)
+    params = {k: torch.from_numpy(np.array(v)) for k, v in jparams.items()}
+    B, K, W, J = 3, 16, 8, 4
+    rng = np.random.default_rng(1)
+    jc = jcache.init_synapse_cache(jcfg, B, K, W, J, jnp.float32)
+    r = lambda a: rng.standard_normal(a.shape).astype(np.float32)
+    jc = dataclasses.replace(
+        jc, lm_k=jnp.asarray(r(jc.lm_k)), lm_v=jnp.asarray(r(jc.lm_v)),
+        lm_score=jnp.asarray(rng.uniform(size=jc.lm_score.shape).astype(np.float32)),
+        lm_count=jnp.asarray([0, 5, K], jnp.int32), win_k=jnp.asarray(r(jc.win_k)), win_v=jnp.asarray(r(jc.win_v)),
+        win_count=jnp.asarray([2, W, W + 3], jnp.int32), length=jnp.asarray([2, W + 5, K + W + 3], jnp.int32),
+    )
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    positions = np.asarray([3, 40, 90], np.int32)
+    outs = {}
+    for impl in ("kernel", "piece"):
+        cache = bridge.cache_from_numpy(jax.tree.map(np.asarray, jc), "cpu")  # decoded in place
+        y, cache, stats = tsynapse.synapse_decode(params, cfg, torch.from_numpy(x), cache, torch.from_numpy(positions),
+                                                  tsynapse.SynapsePolicy(attend_impl=impl))
+        outs[impl] = (y, bridge.cache_to_numpy(cache), stats["attn_mass_landmarks"])
+    (y_k, c_k, m_k), (y_p, c_p, m_p) = outs["kernel"], outs["piece"]
+    assert torch.equal(y_k, y_p) and torch.equal(m_k, m_p)
+    for name in c_k:
+        np.testing.assert_array_equal(c_k[name], c_p[name], err_msg=name)
+    y_j, c_j, st_j = jsynapse.synapse_decode(jparams, jcfg, jnp.asarray(x), jc, jnp.asarray(positions),
+                                             jsynapse.SynapsePolicy(attend_impl="piece"))
+    np.testing.assert_allclose(y_p.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-5)
+    for name, want in bridge.cache_to_numpy(bridge.cache_from_numpy(jax.tree.map(np.asarray, c_j), "cpu")).items():
+        np.testing.assert_allclose(np.asarray(c_p[name], np.float32), np.asarray(want, np.float32),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(m_p.numpy(), np.asarray(st_j["attn_mass_landmarks"]), rtol=1e-5, atol=1e-5)

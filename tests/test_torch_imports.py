@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.trainer",
             "repro_torch.data.pipeline", "repro_torch.launch.train", "repro_torch.examples",
             "repro_torch.examples.train_small_lm", "repro_torch.examples.quickstart",
-            "repro_torch.examples.council_of_agents", "repro_torch.examples.long_context_synapse"} <= set(mods)
+            "repro_torch.examples.council_of_agents", "repro_torch.examples.long_context_synapse",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.core.synapse_sharded"} <= set(mods)
     assert {m.rsplit(".", 1)[1] for m in mods if m.startswith("repro_torch.configs.")} == {
         "zamba2_1p2b", "qwen2_vl_72b", "rwkv6_1p6b", "qwen3_moe_30b_a3b", "qwen1p5_110b", "qwen3_8b",
         "hubert_xlarge", "deepseek_v2_236b", "qwen3_4b", "smollm_135m", "qwen25_0p5b"}
@@ -165,7 +166,7 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_small_lm.main(["--steps", "1"])
     for mesh in ("single", "multi"):
-        with pytest.raises(SystemExit, match="ROADMAP item 12"):
+        with pytest.raises(SystemExit, match="ROADMAP item 14"):
             train.main(["--device", "cpu", "--steps", "1", "--mesh", mesh])
 
 

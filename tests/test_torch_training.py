@@ -279,7 +279,7 @@ def test_launcher_trains_and_checkpoints_on_the_cpu(tmp_path):
     restored = ckpt.load_framed(out["checkpoints"][-1], like)
     got, want = ckpt.tree_flatten_with_path(restored), ckpt.tree_flatten_with_path(like)
     assert [(k, a.shape) for k, a in got] == [(k, a.shape) for k, a in want]
-    with pytest.raises(SystemExit, match="ROADMAP item 12"):
+    with pytest.raises(SystemExit, match="ROADMAP item 14"):
         launch_train.main(["--device", "cpu", "--steps", "1", "--mesh", "single"])
 
 
