@@ -111,7 +111,20 @@ Phases, each failing the run on its own failure:
    plain run's. Then ``BatchServer(mesh=..., n_lanes=4)`` on both loops,
    bitwise the ``mesh=None`` server. Prints ms per virtual tick, tokens/s
    and memory of both engines.
-11. Print the ``kernels`` JSON line, the card's name and power limit, and
+11. Training over a mesh, and the launch tooling. (a)
+   ``repro_torch.launch.train.main(["--mesh", "single", "--full", ...])``
+   in process on a NCCL mesh of one rank ((data, model) = (1, 1), a
+   FileStore group under ``build/``), Qwen2.5-0.5B at full width and depth,
+   10 steps of 8 x 512 tokens: the train state and every batch DTensors,
+   the residual stream placed between layers. Its losses equal a ``--mesh
+   debug`` run's with the same seed (bitwise, or within 1e-5 relative);
+   both runs' median step ms (steps 2-10, each step between two
+   synchronisations) and peak memory are printed; neither kernel launches.
+   (b) The port's roofline of phase 8's step (the same config, 8 x 512, one
+   device, the H100 SXM's spec-sheet rates): phase 8's median step must be
+   no shorter than max(compute_s, memory_s); the ratio is printed. (c)
+   ``run_registry(10_000)`` for Qwen2.5-0.5B, printed.
+12. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
@@ -1572,11 +1585,11 @@ def _max_change(params, before) -> float:
     return max(float((p.detach().cpu() - p0).abs().max()) for p, p0 in zip(tm.tree_leaves(params), before))
 
 
-def drive_training(card: str) -> dict:
+def drive_training(card: str) -> tuple:
     """Phase 8: train the paper's model at full width and depth, then every
     other family two steps at its reduced config. Returns the kernels'
     launches while training (zero: the train forward's attention is the
-    plain chunked one, as in the reference)."""
+    plain chunked one, as in the reference) and the median step ms."""
     from repro_torch.checkpoint import io as ckpt
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.data.pipeline import DataConfig, batch_to, make_batch
@@ -1705,7 +1718,7 @@ def drive_training(card: str) -> dict:
     if any(family_counts.values()):
         raise AssertionError(f"training the families launched the Cortex kernels: {family_counts}")
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
-    return counts
+    return counts, step_s * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1854,24 +1867,31 @@ LANE_BATCH_TOKENS = 32
 
 
 @contextlib.contextmanager
-def lane_group(path: Path):
-    """A lane group of one rank over NCCL, made in this process from a
-    FileStore at ``path``; destroyed, and the file removed, on exit."""
+def nccl_group(path: Path):
+    """A default process group of one rank over NCCL, made in this process
+    from a FileStore at ``path``; destroyed, and the file removed, on exit."""
     import datetime
 
     import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_lane_mesh
 
     path.parent.mkdir(parents=True, exist_ok=True)
     path.unlink(missing_ok=True)
     dist.init_process_group("nccl", store=dist.FileStore(str(path), 1), rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=300))
     try:
-        yield make_lane_mesh(1)
+        yield
     finally:
         dist.destroy_process_group()
         path.unlink(missing_ok=True)
+
+
+@contextlib.contextmanager
+def lane_group(path: Path):
+    """A lane group of one rank over NCCL (:func:`nccl_group`)."""
+    from repro_torch.launch.mesh import make_lane_mesh
+
+    with nccl_group(path):
+        yield make_lane_mesh(1)
 
 
 def lane_run(prism, tok, mesh, *, engine_kw=MAIN, prompt=PROMPT, timed: int = 0, swap: bool = False,
@@ -2076,6 +2096,111 @@ def drive_lane_group(card: str) -> dict:
     return lane["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training over a mesh, and the launch tooling
+# ---------------------------------------------------------------------------
+TRAIN_MESH_STEPS = 10
+TRAIN_MESH_ARGV = ["--full", "--arch", TRAIN_ARCH, "--steps", str(TRAIN_MESH_STEPS), "--seq", str(TRAIN_SEQ),
+                   "--batch", str(TRAIN_BATCH)]
+
+
+def train_launcher_run(mesh: str) -> dict:
+    """``launch.train.main`` with ``--mesh mesh``; each train step timed
+    between two synchronisations (the launcher's step wrapped here).
+    Returns main's result with "step_ms" (every step's) and "peak"."""
+    from repro_torch.launch import train as launch_train
+
+    secs, make = [], launch_train.make_train_step
+
+    def timed(cfg, opt):
+        step = make(cfg, opt)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return out
+
+        return run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_train.make_train_step = timed
+    try:
+        out = launch_train.main(TRAIN_MESH_ARGV + ["--mesh", mesh])
+    finally:
+        launch_train.make_train_step = make
+    out.pop("state")
+    return dict(out, step_ms=[x * 1e3 for x in secs], peak=torch.cuda.max_memory_allocated())
+
+
+def check_mesh_losses(mesh: list, debug: list) -> float:
+    """The largest relative difference of the mesh run's losses from the
+    debug run's; over 1e-5 fails."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(mesh, debug))
+    if len(mesh) != len(debug) or not worst <= 1e-5:
+        raise AssertionError(f"train mesh: --mesh single losses {mesh} vs --mesh debug {debug}")
+    return worst
+
+
+def train_roofline(train_step_ms: float) -> dict:
+    """The port's roofline of phase 8's step, one device: FLOPs and op bytes
+    of the step on ``meta``. A measured step shorter than the bound means
+    the count is wrong."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline, specs
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), param_dtype="float32", compute_dtype="bfloat16",
+                              remat=True, remat_policy="full")
+    plan = specs.ShapePlan(cfg.name, "train_phase8", "train", TRAIN_SEQ, TRAIN_BATCH, "none")
+    t = time.perf_counter()
+    counts = roofline.step_counts(cfg, plan, None)
+    terms = roofline.times(counts)
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    if not train_step_ms >= bound_ms:
+        raise AssertionError(f"roofline: phase 8's step {train_step_ms} ms is shorter than the bound {bound_ms} ms")
+    return {"flops": counts["flops"], "bytes": counts["bytes"], "compute_ms": terms["compute_s"] * 1e3,
+            "memory_ms": terms["memory_s"] * 1e3, "bound_ms": bound_ms, "dominant": terms["dominant"],
+            "measured_ms": train_step_ms, "measured_over_bound": train_step_ms / bound_ms,
+            "model_flops": roofline.model_flops(cfg, plan), "count_s": time.perf_counter() - t}
+
+
+def drive_train_mesh(card: str, train_step_ms: float) -> dict:
+    """Phase 11. Returns the mesh run's launch counts (zero)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with nccl_group(ROOT / "build" / "train_mesh.store"):
+        ops.reset_launches()
+        mesh = train_launcher_run("single")
+        counts = ops.launch_counts()
+        debug = train_launcher_run("debug")
+    if any(counts.values()):
+        raise AssertionError(f"train mesh: the Cortex kernels launched: {counts}")
+    if mesh["mesh"] != (1, 1):
+        raise AssertionError(f"train mesh: the mesh is {mesh['mesh']}, not (1, 1)")
+    worst = check_mesh_losses(mesh["losses"], debug["losses"])
+    median = lambda ms: statistics.median(ms[1:])
+    log(json.dumps({
+        "train_mesh": TRAIN_ARCH, "card": card, "mesh": mesh["mesh"], "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": mesh["losses"], "debug_losses": debug["losses"], "bitwise": mesh["losses"] == debug["losses"],
+        "max_rel_diff": worst, "step_ms": median(mesh["step_ms"]), "debug_step_ms": median(debug["step_ms"]),
+        "first_step_ms": mesh["step_ms"][0], "debug_first_step_ms": debug["step_ms"][0],
+        "step_ms_all": mesh["step_ms"], "debug_step_ms_all": debug["step_ms"],
+        "max_memory_allocated": mesh["peak"], "debug_max_memory_allocated": debug["peak"],
+        "launches": counts}))
+    log(json.dumps({"roofline": TRAIN_ARCH, "card": card, "phase8_step": train_roofline(train_step_ms)}))
+    reg = dryrun.run_registry(10_000, arch=TRAIN_ARCH)
+    log(json.dumps({"registry": TRAIN_ARCH, **{k: reg[k] for k in ("per_agent_snapshot_bytes", "weight_bytes",
+                                                                    "cold_codec", "at_n", "at_1m")}}))
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2107,20 +2232,24 @@ def main() -> int:
     families = drive_families(card)
     gc.collect()
     torch.cuda.empty_cache()
-    training = drive_training(card)
+    training, train_step_ms = drive_training(card)
     gc.collect()
     torch.cuda.empty_cache()
     examples = drive_examples(card)
     gc.collect()
     torch.cuda.empty_cache()
     lanes = drive_lane_group(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_mesh = drive_train_mesh(card, train_step_ms)
 
     kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
                     tiers_launches=tiers[name], zamba2_launches=families["zamba2"][name],
                     families_launches=families["families"][name], training_launches=training[name],
                     council_launches=examples["council"][name],
                     long_context_launches=examples["long_context"][name],
-                    quickstart_launches=examples["quickstart"][name], lane_group_launches=lanes[name])
+                    quickstart_launches=examples["quickstart"][name], lane_group_launches=lanes[name],
+                    train_mesh_launches=train_mesh[name])
                for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):

@@ -181,8 +181,9 @@ def init_tick_state(cfg: ModelConfig, *, n_main: int, max_side: int, main_spec, 
     lane group); ``side_seed`` gives them a generator of their own."""
     d = cfg.d_model
     M, S, R, P = n_main, max_side, ring_capacity, side_prompt_cap
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    # the meta device (the dry run's byte counts) has no generator
+    meta = torch.device(device).type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
     # one ring buffer for every lane, at a fixed address: a drain copies it
     # to the host in one transfer
@@ -202,8 +203,15 @@ def init_tick_state(cfg: ModelConfig, *, n_main: int, max_side: int, main_spec, 
         side_ring=rings[M:],
         side_samp=lane_params(side_sampling, S, device=device),
         side_caches=model_lib.init_caches(cfg, S, side_spec, device=device),
-        side_gen=None if side_seed is None else torch.Generator(device=device).manual_seed(side_seed),
+        side_gen=None if side_seed is None or meta else torch.Generator(device=device).manual_seed(side_seed),
     )
+
+
+def gather_main_lane(st: TickState, lane: int) -> dict:
+    """One river lane's device state, as the reference snapshots it
+    (views: the store copies them)."""
+    return {"caches": model_lib.lane_caches(st.main_caches, lane), "tok": st.main_tok[lane],
+            "pos": st.main_pos[lane], "hidden": st.main_hidden[lane]}
 
 
 def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec, side_spec,
@@ -1072,11 +1080,7 @@ class CortexEngine:
     # worker thread and commits it at a window boundary
     # ------------------------------------------------------------------
     def _gather_main_lane(self, lane: int) -> dict:
-        """One river lane's device state, as the reference snapshots it
-        (views: the store copies them)."""
-        st = self.state
-        return {"caches": model_lib.lane_caches(st.main_caches, lane), "tok": st.main_tok[lane],
-                "pos": st.main_pos[lane], "hidden": st.main_hidden[lane]}
+        return gather_main_lane(self.state, lane)
 
     def _gather_side_lane(self, lane: int) -> dict:
         """On a lane group every rank gets the lane: a broadcast from its

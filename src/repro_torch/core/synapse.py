@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.attention import _project_qkv, decode_attend, rotate_one
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import replicate_dims
 
 NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
@@ -192,7 +193,9 @@ def synapse_decode(
     dist = _normed_dist(pooled_lm, grad_pooled)           # [B, K]
     lm_slot_valid = torch.arange(K, device=dev)[None, :] < cache.lm_count[:, None]
     inf = torch.full_like(dist, float("inf"))
-    min_dist = torch.where(lm_slot_valid, dist, inf).min(dim=-1).values
+    # (amin, not min: a plain reduction, which a mesh can split; min's
+    # indices cannot be)
+    min_dist = torch.amin(torch.where(lm_slot_valid, dist, inf), dim=-1)
     cap = policy.coverage_cap
     cov = torch.clamp(torch.where(torch.isfinite(min_dist), min_dist, torch.full_like(min_dist, cap)), max=cap) / cap
 
@@ -202,7 +205,7 @@ def synapse_decode(
     resid = torch.clamp(cache.win_count.float(), min=1.0, max=float(W))
     grad_rate = grad_score / resid
     lm_rate = cache.lm_score * one_minus_ema                      # [B, K]
-    min_lm_rate = torch.where(lm_slot_valid, lm_rate, inf).min(dim=-1).values
+    min_lm_rate = torch.amin(torch.where(lm_slot_valid, lm_rate, inf), dim=-1)
     mean_lm_rate = torch.where(lm_slot_valid, lm_rate, torch.zeros_like(lm_rate)).sum(dim=-1) / torch.clamp(
         cache.lm_count.float(), min=1.0
     )
@@ -214,7 +217,9 @@ def synapse_decode(
     evict_slot = torch.where(
         cache.lm_count < K,
         cache.lm_count.long(),
-        torch.argmin(torch.where(lm_slot_valid, lm_rate, inf), dim=-1),
+        # (on a mesh the landmark dim is gathered first: the arg-reduction's
+        # rule cannot take it split)
+        torch.argmin(replicate_dims(torch.where(lm_slot_valid, lm_rate, inf), -1), dim=-1),
     )
     promote = win_full & ((cache.lm_count < K) | (hybrid_rate > min_lm_rate))
 

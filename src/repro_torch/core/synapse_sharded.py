@@ -28,6 +28,7 @@ from contextvars import ContextVar
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 NEG_INF = -1e30
 
@@ -73,8 +74,9 @@ def onehot_write(buf, slot, new, mask=None, *, ctx: ShardContext | None = None):
     """In place: buf [B,T,...] <- new [B,...] at per-lane ``slot``, only on
     lanes where ``mask`` holds. No token axis: a per-lane scatter, bitwise
     the one-hot select for in-bounds slots (every caller's), without
-    [B,T]-shaped masks. A token axis: the one-hot select."""
-    if _resolve(ctx).axis is None:
+    [B,T]-shaped masks. A token axis, or a DTensor buffer (on a mesh):
+    the one-hot select, elementwise over the token dim."""
+    if _resolve(ctx).axis is None and not isinstance(buf, DTensor):
         lane = torch.arange(buf.shape[0], device=buf.device)
         slot = slot.long()
         val = new.to(buf.dtype)
@@ -94,8 +96,9 @@ def onehot_write(buf, slot, new, mask=None, *, ctx: ShardContext | None = None):
 def onehot_read(buf, slot, *, ctx: ShardContext | None = None):
     """buf [B,T,...] -> [B,...] at per-lane ``slot``: a gather with no token
     axis, the one-hot contraction (in f32) with one; the two agree exactly
-    for f32 and int32 buffers and in-bounds slots."""
-    if _resolve(ctx).axis is None:
+    for f32 and int32 buffers and in-bounds slots. A DTensor buffer takes
+    the contraction too."""
+    if _resolve(ctx).axis is None and not isinstance(buf, DTensor):
         return buf[torch.arange(buf.shape[0], device=buf.device), slot.long()]
     oh = (slot.long()[:, None] == torch.arange(buf.shape[1], device=buf.device)[None, :]).float()
     out = torch.einsum("bt,bt...->b...", oh, buf.float())

@@ -119,6 +119,8 @@ def landmark_score(q, keys, landmarks=None, *, scale: float | None = None):
     scale = 1.0 / (D ** 0.5) if scale is None else scale
     if q.device.type == "cpu":
         return landmark_score_ref(q, keys, landmarks, scale=scale)
+    if q.device.type == "meta":  # the dry run: shapes and FLOP counts, no launch
+        return landmark_score_ref(q, keys, landmarks, scale=scale)
     _check(q, keys, landmarks)
     T, Hkv = keys.shape[1], keys.shape[2]
     kc = 0 if landmarks is None else landmarks.shape[1]

@@ -151,6 +151,8 @@ def synapse_attention(q, keys, values, valid, *, scale: float | None = None):
     scale = 1.0 / (D ** 0.5) if scale is None else scale
     if q.device.type == "cpu":
         return synapse_attention_ref(q, keys, values, valid, scale=scale)
+    if q.device.type == "meta":  # the dry run: shapes and FLOP counts, no launch
+        return synapse_attention_ref(q, keys, values, valid, scale=scale)
     _check(q, keys, values, valid)
     T, Hkv = keys.shape[1], keys.shape[2]
     plan = launch_plan(B, T, H, Hkv, D, q.element_size())

@@ -11,12 +11,16 @@ reference.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init, lane_head_placements, merge_heads, per_shard,
+                                      rms_norm, split_heads, split_mesh)
 
 NEG_INF = -1e30
 SCORE_EMA = 0.99  # decay of the per-slot attention-mass accumulator
@@ -57,9 +61,7 @@ def _project_qkv(p, cfg: ModelConfig, x, lora_idx=None):
     if lora_idx is not None and "lora_a" in p:
         delta = (x @ p["lora_a"][lora_idx]) @ p["lora_b"][lora_idx]  # [B, S, (h+2hkv)*d]
         q, k, v = q + delta[..., :h * d], k + delta[..., h * d:(h + hkv) * d], v + delta[..., (h + hkv) * d:]
-    q = q.reshape(B, S, h, d)
-    k = k.reshape(B, S, hkv, d)
-    v = v.reshape(B, S, hkv, d)
+    q, k, v = (split_heads(t, n, d, groups=hkv) for t, n in ((q, h), (k, hkv), (v, hkv)))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -88,7 +90,16 @@ def rotate_one(cfg: ModelConfig, q, k, positions):
 # ---------------------------------------------------------------------------
 def blocked_attention(q, k, v, *, causal: bool, chunk: int = 1024):
     """[B,S,H,D] x [B,T,Hkv,D] -> [B,S,H,D], chunked over queries so peak
-    memory is O(chunk * T)."""
+    memory is O(chunk * T). On a mesh, on each rank's blocks of lanes and
+    heads (:func:`~repro_torch.models.layers.lane_head_placements`)."""
+    fn = functools.partial(_blocked_attention, causal=causal, chunk=chunk)
+    if split_mesh(q) is None:
+        return fn(q, k, v)
+    mesh, (pl,) = lane_head_placements(q, k.shape[2], (2,))
+    return per_shard(fn, mesh, (pl,), (pl, pl, pl), q, k, v)
+
+
+def _blocked_attention(q, k, v, *, causal: bool, chunk: int):
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -114,8 +125,7 @@ def attention_forward(params, cfg: ModelConfig, x, positions, *, lora_idx=None, 
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
     out = blocked_attention(q, k, v, causal=cfg.causal, chunk=chunk)
-    B, S = x.shape[:2]
-    y = out.reshape(B, S, -1) @ params["wo"]
+    y = merge_heads(out) @ params["wo"]
     return y, (k, v)
 
 
@@ -127,8 +137,17 @@ def decode_attend(q, keys, values, valid):
 
     Returns (out [B,H,D], key_mass [B,T] f32): key_mass is the attention
     probability summed over all query heads. p is cast to the value dtype
-    before the p·V product, as in the reference.
+    before the p·V product, as in the reference. On a mesh, on each rank's
+    blocks of lanes and heads (:func:`~repro_torch.models.layers.lane_head_placements`; the key mass then
+    a partial sum over ``model``).
     """
+    if split_mesh(q) is None:
+        return _decode_attend(q, keys, values, valid)
+    mesh, (pq, pk, pv, pm) = lane_head_placements(q, keys.shape[2], (1, 2, None, None), partial=(3,))
+    return per_shard(_decode_attend, mesh, (pq, pm), (pq, pk, pk, pv), q, keys, values, valid)
+
+
+def _decode_attend(q, keys, values, valid):
     B, H, D = q.shape
     Hkv = keys.shape[2]
     G = H // Hkv
@@ -143,7 +162,16 @@ def decode_attend(q, keys, values, valid):
 
 def masked_lane_write(buf, slot, val, ok):
     """In place: buf[b, slot[b]] <- val[b] where ok[b]; other lanes keep
-    their row. ``slot`` must be in bounds; no device value is read."""
+    their row. ``slot`` must be in bounds; no device value is read.
+
+    On a mesh (a DTensor cache) the same write is a one-hot select over
+    the slots: elementwise, so every rank writes its own shard, where the
+    scatter's placement rule could not keep the cache's placement."""
+    if isinstance(buf, DTensor):
+        hit = (slot[:, None] == torch.arange(buf.shape[1], device=buf.device)[None, :]) & ok[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (buf.dim() - 2))
+        buf.copy_(torch.where(hit, val.to(buf.dtype)[:, None], buf))
+        return
     lane = torch.arange(buf.shape[0], device=buf.device)
     cur = buf[lane, slot]
     m = ok.reshape(ok.shape + (1,) * (cur.dim() - 1))
@@ -175,7 +203,7 @@ def attention_decode_full(params, cfg: ModelConfig, x, cache: cache_lib.FullCach
     slots = torch.arange(cap, device=x.device)
     valid = slots[None, :] <= cache.length[:, None]  # includes the token just written
     out, key_mass = decode_attend(q1, cache.k, cache.v, valid)
-    y = out.reshape(B, -1) @ params["wo"]
+    y = merge_heads(out) @ params["wo"]
     masked_lane_write(cache.score, slot, torch.zeros_like(key_mass[:, 0]), ok)
     cache.score.mul_(SCORE_EMA).add_(key_mass)
     cache.length.add_(1)

@@ -9,13 +9,16 @@ decode. Plain PyTorch, as the reference is plain jnp.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.attention import masked_lane_write
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, lane_head_placements, merge_heads, per_shard, rms_norm,
+                                      split_heads, split_mesh)
 
 NEG_INF = -1e30
 SCORE_EMA = 0.99
@@ -50,7 +53,7 @@ def _queries(p, cfg: ModelConfig, x):
         q = rms_norm(x @ p["wdq"], p["q_lora_norm"], cfg.norm_eps) @ p["wuq"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(B, S, h, dn + dr)
+    q = split_heads(q, h, dn + dr)
     return q[..., :dn], q[..., dn:]  # q_nope [B,S,h,dn], q_rope [B,S,h,dr]
 
 
@@ -70,22 +73,36 @@ def mla_forward(p, cfg: ModelConfig, x, positions, *, chunk: int = 1024):
     qn, qr = _queries(p, cfg, x)
     qr = apply_rope(qr, positions, cfg.rope_theta)
     ckv, krope = _latents(p, cfg, x, positions)
-    kn = (ckv @ p["wuk"]).reshape(B, S, h, dn)
-    v = (ckv @ p["wuv"]).reshape(B, S, h, dv)
-    scale = 1.0 / np.sqrt(dn + dr)
-    kpos = torch.arange(S, device=x.device)
+    kn = split_heads(ckv @ p["wuk"], h, dn)
+    v = split_heads(ckv @ p["wuv"], h, dv)
+    core, kr = functools.partial(_mla_attention, scale=1.0 / np.sqrt(dn + dr), chunk=chunk), krope
+    if split_mesh(qn) is not None:  # every (lane, head) on its own: each rank's blocks of them
+        mesh, (ph,) = lane_head_placements(qn, h, (2,))
+        core = functools.partial(per_shard, core, mesh, (ph,), (ph,) * 5)
+        # the shared rope key, one copy a head before the split: its
+        # gradient then sums over the heads of every rank
+        kr = krope[:, :, None, :].expand(B, S, h, dr)
+    out = core(qn, qr, kr, kn, v)
+    y = merge_heads(out) @ p["wo"]
+    return y, (ckv, krope)
+
+
+def _mla_attention(qn, qr, krope, kn, v, *, scale: float, chunk: int):
+    """Causal attention over materialised keys, blocked over queries:
+    [B,S,h,*] -> [B,S,h,dv]; ``krope`` [B,S,dr], or a copy a head [B,S,h,dr]."""
+    S = qn.shape[1]
+    kpos = torch.arange(S, device=qn.device)
     outs = []
     for c0 in range(0, S, chunk):
         qnc, qrc = qn[:, c0:c0 + chunk], qr[:, c0:c0 + chunk]
-        s = torch.einsum("bqhd,bthd->bhqt", qnc, kn) + torch.einsum("bqhd,btd->bhqt", qrc, krope)
+        s = torch.einsum("bqhd,bthd->bhqt", qnc, kn) + torch.einsum("bqhd,btd->bhqt", qrc, krope if krope.dim() == 3
+                                                                     else krope[:, :, 0])
         s = s.float() * scale
-        qpos = c0 + torch.arange(qnc.shape[1], device=x.device)
+        qpos = c0 + torch.arange(qnc.shape[1], device=qn.device)
         s = torch.where((kpos[None, :] <= qpos[:, None])[None, None], s, torch.full_like(s, NEG_INF))
         pr = torch.softmax(s, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqt,bthd->bqhd", pr, v))
-    out = torch.cat(outs, dim=1)
-    y = out.reshape(B, S, h * dv) @ p["wo"]
-    return y, (ckv, krope)
+    return torch.cat(outs, dim=1)
 
 
 def mla_decode(p, cfg: ModelConfig, x, cache: cache_lib.MLACache, positions):
@@ -107,7 +124,7 @@ def mla_decode(p, cfg: ModelConfig, x, cache: cache_lib.MLACache, positions):
     masked_lane_write(cache.ckv, slot, ckv_new[:, 0], ok)
     masked_lane_write(cache.krope, slot, krope_new[:, 0], ok)
     # absorb W_uk into q: q_lat[b,h,r] = sum_dn qn[b,h,dn] * Wuk[r,h,dn]
-    q_lat = torch.einsum("bhd,rhd->bhr", qn[:, 0], p["wuk"].reshape(r, h, dn))
+    q_lat = torch.einsum("bhd,rhd->bhr", qn[:, 0], split_heads(p["wuk"], h, dn))
     s = torch.einsum("bhr,btr->bht", q_lat, cache.ckv) + torch.einsum("bhd,btd->bht", qr[:, 0], cache.krope)
     s = s.float() / np.sqrt(dn + dr)
     valid = torch.arange(cap, device=x.device)[None, :] <= cache.length[:, None]
@@ -115,7 +132,7 @@ def mla_decode(p, cfg: ModelConfig, x, cache: cache_lib.MLACache, positions):
     pr = torch.softmax(s, dim=-1)
     key_mass = pr.sum(dim=1)  # [B, T]: the density term for the synapse
     out_lat = torch.einsum("bht,btr->bhr", pr.to(cache.ckv.dtype), cache.ckv)
-    out = torch.einsum("bhr,rhd->bhd", out_lat, p["wuv"].reshape(r, h, dv))
+    out = torch.einsum("bhr,rhd->bhd", out_lat, split_heads(p["wuv"], h, dv))
     y = out.reshape(B, h * dv) @ p["wo"]
     masked_lane_write(cache.score, slot, torch.zeros_like(key_mass[:, 0]), ok)
     cache.score.mul_(SCORE_EMA).add_(key_mass)

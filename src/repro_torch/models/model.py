@@ -19,13 +19,15 @@ import functools
 from dataclasses import dataclass, field
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core import synapse as synapse_lib
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, cache as cache_lib, mamba2, mla, moe, rwkv6
 from repro_torch.models.config import LayerGroup, ModelConfig
-from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu, swiglu_init
+from repro_torch.models.layers import (dense_init, embed_init, embed_lookup, gather_fsdp, replicate_dims, rms_norm,
+                                      swiglu, swiglu_init)
 
 
 @dataclass(frozen=True)
@@ -147,6 +149,59 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     return params
 
 
+def abstract_params(cfg: ModelConfig):
+    """The params' shapes and dtypes on the ``meta`` device, no storage
+    (the dry run's counterpart of the reference's ``jax.eval_shape``)."""
+    return init_params(cfg, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# activation placement anchors
+# ---------------------------------------------------------------------------
+# The placement of the [B, S, d] residual stream between layers, set by the
+# launch entry points before a step on a mesh: the reference's
+# ``_ACT_SPEC``. A spec names the axes of each dim (None, an axis name or a
+# tuple of them), as ``repro_torch.launch.sharding`` does.
+_ACT_SPEC = None
+
+
+def set_activation_sharding(spec):
+    """spec: the per-dim axes of [B, S, d] activations, e.g. (("data",),
+    "model", None), or None to disable."""
+    global _ACT_SPEC
+    _ACT_SPEC = None if spec is None else tuple(spec)
+
+
+def constrain_to(x, spec):
+    """``x`` (a DTensor) redistributed to the placements of ``spec`` on its
+    own mesh; an axis that does not divide its dim is dropped, as the
+    param rules drop it. A plain tensor is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch import sharding  # lazy: sharding imports this module
+
+    mesh = x.device_mesh
+    want = sharding.placements(sharding.fit_spec(mesh, x.shape, spec), mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def _whole_seq(x):
+    """The stream [B, S, d] with its sequence whole on every rank: the
+    anchors split the sequence over ``model`` between layers (what a
+    rematerialised layer keeps for the backward pass), and each block
+    gathers it before its projections, as sequence parallelism does."""
+    return replicate_dims(x, 1) if x.dim() == 3 else x
+
+
+def _constrain(x):
+    if _ACT_SPEC is None:
+        return x
+    spec = _ACT_SPEC
+    if x.dim() == 2:  # [B, d] decode stream
+        spec = (spec[0], None)
+    return constrain_to(x, spec)
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -175,13 +230,20 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _gathered(params):
+    """On a mesh, a block's weights whole over the data axes (FSDP's gather
+    before use, still split over ``model``); as they are otherwise. Inside
+    a rematerialised layer the backward pass gathers again."""
+    return tree_map(gather_fsdp, params)
+
+
 def _radd(x, y):
     """Residual add keeping the stream dtype."""
     return x + y.to(x.dtype)
 
 
 def _head(params, cfg: ModelConfig, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    head = params["embed"].T if cfg.tie_embeddings else gather_fsdp(params["head"])
     return (x @ head.to(x.dtype)).float()
 
 
@@ -257,7 +319,7 @@ def _inputs(params, cfg: ModelConfig, inputs: dict):
     embedding table."""
     if "embeds" in inputs:
         return inputs["embeds"].to(torch_dtype(cfg.compute_dtype))
-    return params["embed"][inputs["tokens"].long()].to(torch_dtype(cfg.compute_dtype))
+    return embed_lookup(inputs["tokens"].long(), params["embed"]).to(torch_dtype(cfg.compute_dtype))
 
 
 def _positions(cfg: ModelConfig, inputs: dict, B: int, S: int, device):
@@ -284,6 +346,7 @@ def _zero_aux(device):
 
 def _attn_block_fwd(p, cfg: ModelConfig, mlp_kind: str, x, positions, chunk):
     """Returns (x_out, aux, kv): kv is (k_rot, v), or (ckv, krope) for MLA."""
+    x = _whole_seq(x)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         y, kv = mla.mla_forward(p["attn"], cfg, h, positions, chunk=chunk)
@@ -299,6 +362,7 @@ def _attn_block_fwd(p, cfg: ModelConfig, mlp_kind: str, x, positions, chunk):
 
 
 def _shared_attn_fwd(p, cfg: ModelConfig, x, positions, lora_idx: int, chunk):
+    p, x = _gathered(p), _whole_seq(x)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y, kv = attention.attention_forward(p["attn"], cfg, h, positions, lora_idx=lora_idx, chunk=chunk)
     x = _radd(x, y)
@@ -308,12 +372,14 @@ def _shared_attn_fwd(p, cfg: ModelConfig, x, positions, lora_idx: int, chunk):
 
 def _mamba2_fwd_state(p_layer, cfg: ModelConfig, x):
     """Mamba2 layer forward that also returns the terminal decode state."""
+    x = _whole_seq(x)
     h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
     y, state = mamba2.mamba2_forward(p_layer["mixer"], cfg, h, return_state=True)
     return _radd(x, y), state
 
 
 def _rwkv6_fwd_state(p_layer, cfg: ModelConfig, x):
+    x = _whole_seq(x)
     h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
     y, (shift_tm, wkv) = rwkv6.rwkv6_tmix_forward(p_layer["tmix"], cfg, h)
     x = _radd(x, y)
@@ -328,6 +394,7 @@ def _rwkv6_fwd_state(p_layer, cfg: ModelConfig, x):
 def _layer_fwd(p_layer, x, *, cfg: ModelConfig, grp: LayerGroup, positions, chunk):
     """One layer of a group: (x_out, aux), aux None but for attention
     blocks (whose MLP may be a MoE)."""
+    p_layer, x = _gathered(p_layer), _whole_seq(x)
     if grp.kind == "attn":
         x, aux, _ = _attn_block_fwd(p_layer, cfg, grp.mlp, x, positions, chunk)
         return x, aux
@@ -380,14 +447,17 @@ def forward(params, cfg: ModelConfig, inputs: dict, *, chunk: int = 1024):
         grp, pg = groups[seg.group], params["groups"][seg.group]
         layer = _remat(cfg, functools.partial(_layer_fwd, cfg=cfg, grp=grp, positions=positions, chunk=chunk))
         for i in range(seg.start, seg.start + seg.count):
-            x, aux = layer(_layer(pg, i), x)
+            x, aux = layer(_layer(pg, i), _constrain(x))
+            x = _constrain(x)
             if aux is not None:
                 aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
         if seg.shared_after >= 0:
             x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, positions, seg.shared_after, chunk)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(_whole_seq(x), params["final_norm"], cfg.norm_eps)
     aux_total["hidden_last"] = x[:, -1, :]
-    return _head(params, cfg, x), aux_total
+    # on a mesh the logits take the stream's placement, the vocab whole:
+    # the loss's log-softmax and gather then run on each rank's tokens
+    return _constrain(_head(params, cfg, x)), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +512,8 @@ def prefill(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, spec
     for seg in build_segments(cfg):
         grp, pg, cg = groups[seg.group], params["groups"][seg.group], caches.groups[seg.group]
         for i in range(seg.start, seg.start + seg.count):
-            p_layer, cache = _layer(pg, i), layer_cache(cg, i)
+            p_layer, cache = _gathered(_layer(pg, i)), layer_cache(cg, i)
+            x = _constrain(x)
             if grp.kind == "mamba2":
                 x, state = _mamba2_fwd_state(p_layer, cfg, x)
                 cache_lib.copy_into(cache, state)
@@ -508,7 +579,7 @@ def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, 
     for seg in build_segments(cfg):
         grp, pg, cg = groups[seg.group], params["groups"][seg.group], caches.groups[seg.group]
         for i in range(seg.start, seg.start + seg.count):
-            p_layer, cache = _layer(pg, i), layer_cache(cg, i)
+            p_layer, cache = _gathered(_layer(pg, i)), layer_cache(cg, i)
             if grp.kind == "attn":
                 h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
                 x = _radd(x, _attn_decode(p_layer["attn"], cfg, spec, h, cache, positions))
@@ -529,7 +600,7 @@ def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, 
                 cache_lib.copy_into(cache, state)
                 x = _radd(x, y)
         if seg.shared_after >= 0:
-            sp = params["shared_attn"]
+            sp = _gathered(params["shared_attn"])
             h = rms_norm(x, sp["ln1"], cfg.norm_eps)
             x = _radd(x, _attn_decode(sp["attn"], cfg, spec, h, layer_cache(caches.shared, seg.shared_after), positions))
             h = rms_norm(x, sp["ln2"], cfg.norm_eps)

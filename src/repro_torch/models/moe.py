@@ -15,11 +15,29 @@ reads a device value on the host, so a decode step stays free of syncs.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, swiglu, swiglu_init
+from repro_torch.models.layers import dense_init, gather_fsdp, on_replicas, swiglu, swiglu_init
+
+
+def _constrain_ep(x, expert_dim: int):
+    """Pin the expert dim of dispatch buffers to the model axis (expert
+    parallelism), the batch dim to the activations' batch axes: without it
+    the expert weights would be gathered per layer. A no-op unless an
+    activation spec is set and ``x`` is a DTensor."""
+    from repro_torch.models import model as model_lib  # lazy: no import cycle
+
+    spec = model_lib._ACT_SPEC
+    if spec is None:
+        return x
+    axes = [None] * x.dim()
+    axes[0] = spec[0]          # batch axes
+    axes[expert_dim] = "model"
+    return model_lib.constrain_to(x, axes)
 
 
 def moe_init(gen, cfg: ModelConfig, dtype, device, *, lead=()):
@@ -57,12 +75,13 @@ def _route(p, cfg: ModelConfig, x):
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_ids
 
 
-def _experts(ex, buf):
-    """SwiGLU of every expert over its slots: [..., E, C, dm] -> same."""
-    cast = lambda a: a.to(buf.dtype)
+def _experts(ex, buf, pin=lambda t: t):
+    """SwiGLU of every expert over its slots: [..., E, C, dm] -> same;
+    ``pin`` places the hidden and the output buffers."""
+    cast = lambda a: gather_fsdp(a).to(buf.dtype)
     h = F.silu(torch.einsum("...ecd,edf->...ecf", buf, cast(ex["gate"]))) * torch.einsum(
         "...ecd,edf->...ecf", buf, cast(ex["up"]))
-    return torch.einsum("...ecf,efd->...ecd", h, cast(ex["down"]))
+    return pin(torch.einsum("...ecf,efd->...ecd", pin(h), cast(ex["down"])))
 
 
 def _aux(probs, expert_ids, kept, E: int, K: int, token_axes):
@@ -82,8 +101,29 @@ def moe_forward(p, cfg: ModelConfig, x):
     return _moe_global(p, cfg, x)
 
 
+def _to_slots(xt, sorted_e, pos_in_e, src_token, *, E: int, C: int):
+    """The [E, C + 1, dm] dispatch buffer. The reference's scatter drops
+    the overflow: here it lands in a spare slot C, which is cut off (no
+    host read of how many were dropped)."""
+    buf = torch.zeros((E, C + 1, xt.shape[-1]), dtype=xt.dtype, device=xt.device)
+    buf[sorted_e, torch.clamp(pos_in_e, max=C)] = xt[src_token]
+    return buf
+
+
+def _from_slots(out_buf, sorted_e, pos_in_e, kept, order, *, C: int):
+    """Each assignment's expert output, in the assignments' own order
+    (zero where it overflowed)."""
+    gathered = out_buf[sorted_e, torch.clamp(pos_in_e, max=C - 1)]
+    gathered = torch.where(kept[:, None], gathered, torch.zeros((), dtype=gathered.dtype, device=out_buf.device))
+    unsorted = torch.empty_like(gathered)
+    unsorted[order] = gathered
+    return unsorted
+
+
 def _moe_global(p, cfg: ModelConfig, x):
-    """One flat stable sort over the B*S*K assignments into [E, C, dm]."""
+    """One flat stable sort over the B*S*K assignments into [E, C, dm].
+    The sort spans every token: on a mesh the dispatch and the combine run
+    on every rank's whole copy."""
     B, S, dm = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
@@ -96,20 +136,15 @@ def _moe_global(p, cfg: ModelConfig, x):
     sorted_e = flat_e[order]
     counts = F.one_hot(flat_e, E).sum(dim=0)  # (torch.bincount reads its max on the host)
     starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * K, device=x.device) - starts[sorted_e]  # rank within expert
+    # rank within expert (.long(): on a mesh, the DTensor rules of this
+    # integer arithmetic may hand back a float tensor)
+    pos_in_e = (torch.arange(T * K, device=x.device) - starts[sorted_e]).long()
     src_token = order // K
     kept = pos_in_e < C
 
-    # the reference's scatter drops the overflow: here it lands in a spare
-    # slot C, which is cut off (no host read of how many were dropped)
-    buf = torch.zeros((E, C + 1, dm), dtype=xt.dtype, device=x.device)
-    buf[sorted_e, torch.clamp(pos_in_e, max=C)] = xt[src_token]
+    buf = on_replicas(functools.partial(_to_slots, E=E, C=C), xt, sorted_e, pos_in_e, src_token)
     out_buf = _experts(p["experts"], buf[:, :C])                # [E, C, dm]
-
-    gathered = out_buf[sorted_e, torch.clamp(pos_in_e, max=C - 1)]
-    gathered = torch.where(kept[:, None], gathered, torch.zeros((), dtype=gathered.dtype, device=x.device))
-    unsorted = torch.empty_like(gathered)
-    unsorted[order] = gathered
+    unsorted = on_replicas(functools.partial(_from_slots, C=C), out_buf, sorted_e, pos_in_e, kept, order)
     w = gate_vals.reshape(T * K).to(xt.dtype)
     y = (unsorted * w[:, None]).reshape(T, K, dm).sum(dim=1)
     if cfg.n_shared_experts:
@@ -140,7 +175,8 @@ def _moe_per_lane(p, cfg: ModelConfig, x):
     slot_valid = slot[None, None, :] < counts[:, :, None]
     buf = torch.gather(x_sorted, 1, slot_idx.reshape(B, E * C)[..., None].expand(B, E * C, dm)).reshape(B, E, C, dm)
     buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=x.device))
-    out_buf = _experts(p["experts"], buf)                       # [B,E,C,dm]
+    pin = lambda t: _constrain_ep(t, expert_dim=1)
+    out_buf = _experts(p["experts"], pin(buf), pin)             # [B,E,C,dm]
 
     kept = pos_sorted < C
     flat_pos = sorted_e * C + torch.clamp(pos_sorted, max=C - 1)

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -69,6 +70,15 @@ def loss_fn(params, cfg: ModelConfig, batch):
     return loss, metrics
 
 
+def _placed_as(g, p):
+    """On a mesh, a gradient in its parameter's placement (a partial sum
+    reduced, FSDP's reduce-scatter), so the update keeps every leaf's
+    placement; a plain tensor as it is."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
     """(state, batch) -> (new state, metrics): the loss and its gradient
     with respect to every parameter leaf (zero for a leaf the loss does not
@@ -79,7 +89,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
         leaves = tree_leaves(state.params)
         loss, metrics = loss_fn(state.params, cfg, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+        it = iter(torch.zeros_like(p) if g is None else _placed_as(g, p) for p, g in zip(leaves, grads))
         grads = tree_map(lambda _: next(it), state.params)
         new_params, new_opt, opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
         metrics = {k: v.detach() for k, v in metrics.items()} | opt_metrics

@@ -675,3 +675,37 @@ def test_make_lane_mesh_refuses_gloo_for_a_cuda_mesh(card, lane_mesh):
     with pytest.raises(ValueError, match="needs gloo"):
         make_lane_mesh(group=lane_mesh.group, device="cpu")
     assert lane_mesh.world == 1 and dist.get_backend(lane_mesh.group) == "nccl"
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh on the card, and the wrappers' meta branch
+# ---------------------------------------------------------------------------
+def test_train_mesh_single_of_one_equals_debug_on_card(card, lane_mesh):
+    """``launch.train --mesh single`` on the NCCL group of one ((1, 1)
+    mesh; the reduced config, bf16) gives ``--mesh debug``'s losses
+    (chip_smoke phase 11's check: bitwise or within 1e-5 relative) and
+    launches neither kernel."""
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", "qwen2.5-0.5b", "--steps", "3", "--seq", "64", "--batch", "4"]
+    ops.reset_launches()
+    mesh = launch_train.main(argv + ["--mesh", "single"])
+    assert mesh["mesh"] == (1, 1) and not any(ops.launch_counts().values())
+    debug = launch_train.main(argv + ["--mesh", "debug"])
+    _smoke().check_mesh_losses(mesh["losses"], debug["losses"])
+
+
+def test_kernel_wrappers_meta_branch_never_launches_and_cuda_does(card):
+    ops.build_kernels()
+    q, k, v, valid = _inputs((2, 8, 2, 64, 200), torch.bfloat16, card)
+    meta = lambda t: torch.empty_like(t, device="meta")
+    before = (sa.KERNEL.launches, ls.KERNEL.launches)
+    out, mass = sa.synapse_attention(meta(q), meta(k), meta(v), meta(valid))
+    lm = k[:, :4, 0].contiguous()
+    logits, dist = ls.landmark_score(meta(q), meta(k), meta(lm))
+    assert out.is_meta and mass.shape == (2, 200) and logits.shape == (2, 8, 200) and dist.is_meta
+    assert (sa.KERNEL.launches, ls.KERNEL.launches) == before
+    sa.synapse_attention(q, k, v, valid)
+    ls.landmark_score(q, k, lm)
+    torch.cuda.synchronize()
+    assert (sa.KERNEL.launches, ls.KERNEL.launches) == (before[0] + 1, before[1] + 1)

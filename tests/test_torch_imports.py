@@ -151,7 +151,8 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch, capsys):
 
 def test_training_entry_points_raise_without_a_card(monkeypatch):
     """The train state, the launcher and the example need the card unless
-    asked for the CPU; the launcher refuses the reference's TPU meshes."""
+    asked for the CPU, the launcher's production meshes too; a two-pod mesh
+    on a world of one is refused."""
     from repro_torch.examples import train_small_lm
     from repro_torch.launch import train
     from repro_torch.training.trainer import init_train_state
@@ -165,22 +166,32 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
         train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_small_lm.main(["--steps", "1"])
-    for mesh in ("single", "multi"):
-        with pytest.raises(SystemExit, match="ROADMAP item 14"):
-            train.main(["--device", "cpu", "--steps", "1", "--mesh", mesh])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--mesh", "single"])
+    with pytest.raises(SystemExit, match="multi-pod mesh of 1 ranks"):
+        train.main(["--device", "cpu", "--steps", "1", "--mesh", "multi"])
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
-    """On a CPU tensor the wrapper runs the plain version; any other device
-    is refused, never routed to the plain version."""
-    from repro_torch.kernels import landmark_score, synapse_attention
+    """On a CPU tensor the wrapper runs the plain version; on ``meta`` (the
+    dry run) the plain version too, for shapes and FLOP counts, and
+    nothing launches; the launch path refuses any tensor off the card."""
+    from repro_torch.kernels import landmark_score, ops, synapse_attention
 
+    before = dict(ops.launch_counts())
     q = torch.zeros((1, 4, 8), device="meta")
     k = torch.zeros((1, 16, 2, 8), device="meta")
+    valid = torch.zeros((1, 16), dtype=torch.bool, device="meta")
+    out, mass = synapse_attention.synapse_attention(q, k, k, valid)
+    assert out.shape == (1, 4, 8) and out.is_meta and mass.shape == (1, 16) and mass.dtype == torch.float32
+    logits, dist = landmark_score.landmark_score(q, k, torch.zeros((1, 3, 8), device="meta"))
+    assert logits.shape == (1, 4, 16) and logits.is_meta and dist.shape == (1, 16)
+    assert dict(ops.launch_counts()) == before
+    qc, kc = torch.zeros((1, 4, 8)), torch.zeros((1, 16, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        synapse_attention.synapse_attention(q, k, k, torch.zeros((1, 16), dtype=torch.bool, device="meta"))
+        synapse_attention._check(qc, kc, kc, torch.zeros((1, 16), dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA"):
-        landmark_score.landmark_score(q, k)
+        landmark_score._check(qc, kc, None)
 
 
 def test_chip_smoke_fails_fast_without_a_card():

@@ -279,8 +279,12 @@ def test_launcher_trains_and_checkpoints_on_the_cpu(tmp_path):
     restored = ckpt.load_framed(out["checkpoints"][-1], like)
     got, want = ckpt.tree_flatten_with_path(restored), ckpt.tree_flatten_with_path(like)
     assert [(k, a.shape) for k, a in got] == [(k, a.shape) for k, a in want]
-    with pytest.raises(SystemExit, match="ROADMAP item 14"):
-        launch_train.main(["--device", "cpu", "--steps", "1", "--mesh", "single"])
+    # the production mesh on a world of one: the same run, checkpoints gathered whole
+    mesh = launch_train.main(["--device", "cpu", "--steps", "3", "--seq", "32", "--batch", "4", "--mesh", "single",
+                              "--ckpt-every", "1", "--ckpt-dir", str(tmp_path / "mesh")])
+    assert mesh["mesh"] == (1, 1) and mesh["losses"] == out["losses"]
+    again = ckpt.tree_flatten_with_path(ckpt.load_framed(mesh["checkpoints"][-1], like))
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(again, got))
 
 
 def test_example_trains_checkpoints_and_serves_on_the_cpu(tmp_path):
