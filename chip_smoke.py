@@ -12,10 +12,13 @@ Phases, each failing the run on its own failure:
    path's shapes, the kernel-test shapes and the edge shapes (T = 1, 33,
    4096; Hkv = 8; G = 20; a CTA range and a lane with no valid key), in
    f32 (rtol = atol = 1e-5) and bf16 (2e-2), and ``synapse_attention`` at
-   long key sets whose scores spill to device memory (H = 64 at T = 4096,
-   H = 32 at T = 16384; one CTA's range masked), both ``landmark_score``
-   branches, each twice to check that the results repeat bitwise; time the
-   kernel, the plain version and a one-call library yardstick. Each
+   long key sets (H = 64 at T = 4096, H = 32 at T = 16384, and the
+   reference's ``long_500k`` decode on one lane, T = 5248, with qwen3-8b's
+   and qwen1.5-110b's heads; one CTA's range masked), both
+   ``landmark_score`` branches, each twice to check that the results
+   repeat bitwise; check that ``synapse_attention`` allocates no more
+   device memory than its outputs and its [B, Hkv, T] mass workspace; time
+   the kernel, the plain version and a one-call library yardstick. Each
    kernel's log line also shows its time before the redesign
    (``EARLIER_MS``, a constant: the ``kernels`` line carries only numbers
    this run measured, and ``bound_ms``).
@@ -124,7 +127,14 @@ Phases, each failing the run on its own failure:
    device, the H100 SXM's spec-sheet rates): phase 8's median step must be
    no shorter than max(compute_s, memory_s); the ratio is printed. (c)
    ``run_registry(10_000)`` for Qwen2.5-0.5B, printed.
-12. Print the ``kernels`` JSON line, the card's name and power limit, and
+12. The reference's ``long_500k`` decode: qwen3-8b at its published
+   widths, depth cut to ``LONG500K_LAYERS`` of 36 layers (bf16 weights from
+   seed 0), one lane over a synapse cache of ``long_500k``'s ``CacheSpec``
+   (4096 landmarks, a 1024-token window, 128 inject slots: T = 5248 keys a
+   layer), ``LONG500K_STEPS`` greedy steps through ``model.decode_step``:
+   finite logits, ms per step, and ``synapse_attention`` launched once per
+   layer and step.
+13. Print the ``kernels`` JSON line, the card's name and power limit, and
    the result line.
 
 With no card it exits non-zero at once and prints no result.
@@ -158,7 +168,8 @@ TEST_SHAPES = [  # B, H, Hkv, D, T of the kernel tests, and one wide group
     (1, 4, 4, 64, 128), (2, 8, 2, 64, 200), (2, 9, 3, 64, 321),
     (3, 16, 2, 80, 1000), (1, 32, 8, 128, 4096),
     (2, 40, 2, 64, 96),  # G = 20: more query rows than the kernels hold in registers at once
-    (2, 8, 2, 64, 1), (2, 8, 2, 64, 33),  # one key; two ranges and a ragged tile
+    (2, 8, 2, 64, 1), (2, 8, 2, 64, 33),  # one key; one range of 33 keys, a ragged tile
+    (2, 8, 2, 64, 65),  # two ranges of 32 and 33 keys, a ragged tile past the lane's end
     (2, 16, 8, 64, 4096),  # Hkv = 8 at the longest T
 ]
 # the other families' (H, Hkv, D): zamba2's shared MHA block (side decode
@@ -168,17 +179,21 @@ SYN_ZAMBA = (MAIN["max_side"], 32, 32, 64, 64 + 64 + 16)
 LM_ZAMBA = (6, 32, 32, 64, MAIN["main_capacity"])
 FAMILY_SHAPES = [SYN_ZAMBA, LM_ZAMBA, (8, 32, 4, 128, 144), (48, 32, 4, 128, 1024), (8, 32, 8, 128, 144),
                  (36, 32, 8, 128, 1024), (8, 64, 8, 128, 144), (8, 64, 8, 128, 1024)]
-# long key sets, whose ranges' f32 scores spill to device memory: qwen2-vl's
-# and qwen1.5's heads at a side decode of T = 4096, and 32 heads of 64 at
-# T = 16384 (synapse_attention is timed at the first)
+# long key sets: qwen2-vl's and qwen1.5's heads at a side decode of T =
+# 4096, and 32 heads of 64 at T = 16384 (synapse_attention is timed at the
+# first)
 SYN_LONG = (8, 64, 8, 128, 4096)
 LONG_SHAPES = [SYN_LONG, (1, 32, 2, 64, 16384)]
+# the reference's long_500k decode (launch/specs.py: one lane, 4096
+# landmarks + a 1024-token window + 128 inject slots) with qwen3-8b's heads
+# and with qwen1.5-110b's / qwen2-vl-72b's
+SYN_LONG500K = [(1, 32, 8, 128, 4096 + 1024 + 128), (1, 64, 8, 128, 4096 + 1024 + 128)]
 # the long-context example's side decode: qwen3-8b's heads, one lane,
 # T = K + W + J = 32 + 32 + 4
 SYN_QWEN3 = (1, 32, 8, 128, 32 + 32 + 4)
-# The kernels' times before their redesign, main-path shapes, bf16, L2
-# flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_MS = {"synapse_attention": 0.0820, "landmark_score": 0.0592}
+# The kernels' times before their latest redesign, main-path shapes, bf16,
+# L2 flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_MS = {"synapse_attention": 0.01253, "landmark_score": 0.0592}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TIMED_WINDOWS = 5  # main-path windows timed (the first is warm-up), then one profiled
 
@@ -238,6 +253,26 @@ def kernel_inputs(shape, dtype, g):
     return r(B, H, D), r(B, T, Hkv, D), r(B, T, Hkv, D), valid, r(B, 7, D)
 
 
+def synapse_extra_bytes(q, k, v, valid) -> tuple[int, int]:
+    """(device bytes one ``synapse_attention`` call allocates beyond its
+    inputs at its peak, the bytes of its outputs and of its plan's [B, Hkv,
+    T] f32 mass workspace, if any). A warm call first, so the ticket
+    counters exist."""
+    from repro_torch.kernels import synapse_attention as sa
+
+    sa.synapse_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sa.synapse_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    del out
+    (B, H, D), T, Hkv = q.shape, k.shape[1], k.shape[2]
+    parts = sa.card_plan(q.device, B, T, H, Hkv, D, q.element_size()).mass_parts
+    return extra, q.numel() * q.element_size() + B * T * 4 + (B * Hkv * T * 4 if parts else 0)
+
+
 def new_engine():
     """The main path's engine: Qwen2.5-0.5B at full width, random weights
     from seed 0, greedy, the ``MAIN`` settings. Returns (config, engine)."""
@@ -261,8 +296,10 @@ def check_kernels(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import synapse_attention as sa
 
-    B, H, Hkv, D, T = SYN_MAIN
-    log(f"plan synapse_attention shape={SYN_MAIN} bf16: {sa.launch_plan(B, T, H, Hkv, D, 2)}")
+    log(f"synapse_attention resident CTAs by cluster size {sa.CLUSTER_SIZES}: {sa.resident_ctas(torch.device(dev).index or 0)}")
+    for shape in [SYN_MAIN, SYN_LONG] + SYN_LONG500K:
+        B, H, Hkv, D, T = shape
+        log(f"plan synapse_attention shape={shape} bf16: {sa.card_plan(dev, B, T, H, Hkv, D, 2)}")
     B, H, Hkv, D, T = LM_MAIN
     log(f"plan landmark_score shape={LM_MAIN} bf16 density-only: {ls.launch_plan(B, T, H, Hkv, D, 0, 2)}")
     for name in ("synapse_attention", "landmark_score"):
@@ -279,17 +316,18 @@ def check_kernels(dev):
     worst = {"synapse_attention": 0.0, "landmark_score": 0.0}
     # the main side-decode shape again, with the last CTA's range of lane 0
     # and all of lane 1 invalid
-    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN, SYN_QWEN3] + TEST_SHAPES + FAMILY_SHAPES + LONG_SHAPES] + [
-        (SYN_MAIN, "invalid"), (SYN_LONG, "invalid")]
+    cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN, SYN_QWEN3] + TEST_SHAPES + FAMILY_SHAPES + LONG_SHAPES
+             + SYN_LONG500K] + [(SYN_MAIN, "invalid"), (SYN_LONG, "invalid"), (SYN_LONG500K[0], "invalid")]
     for shape, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             t = dict(rtol=TOL[dtype], atol=TOL[dtype])
             q, k, v, valid, lm = inputs(shape, dtype)
             if mask == "invalid":
                 B, H, Hkv, D, T = shape
-                a, b = sa.launch_plan(B, T, H, Hkv, D, q.element_size()).ranges[-1]
+                a, b = sa.card_plan(dev, B, T, H, Hkv, D, q.element_size()).ranges[-1]
                 valid[0, a:b] = False
-                valid[1] = False
+                if B > 1:
+                    valid[1] = False
             out, mass = sa.synapse_attention(q, k, v, valid)
             out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid)
             torch.testing.assert_close(out.float(), out_r.float(), **t)
@@ -313,6 +351,13 @@ def check_kernels(dev):
                 f"synapse_attention max_abs_err={e_sa:.3g} landmark_score max_abs_err={e_ls:.3g}")
             worst["synapse_attention"] = max(worst["synapse_attention"], e_sa)
             worst["landmark_score"] = max(worst["landmark_score"], e_ls)
+    # no score workspace: a call allocates its outputs and the mass per kv head, nothing more
+    for shape in (SYN_LONG, SYN_LONG500K[1]):
+        extra, want = synapse_extra_bytes(*inputs(shape, torch.bfloat16)[:4])
+        log(f"synapse_attention shape={shape}: {extra} bytes allocated by a call, outputs and mass workspace {want}")
+        if extra > want:
+            raise AssertionError(f"synapse_attention allocated {extra} bytes at {shape}, more than its outputs and "
+                                 f"mass workspace ({want})")
 
     recs = {}
     # times at the main path's shapes, in the working type (bf16)
@@ -349,42 +394,26 @@ def check_kernels(dev):
         **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
         shape=list(LM_MAIN), dtype="bfloat16",
     )
-    # the same at zamba2's shapes (its shared block: H = Hkv = 32, D = 64)
-    B, H, Hkv, D, T = SYN_ZAMBA
-    q, k, v, valid, _ = inputs(SYN_ZAMBA, torch.bfloat16)
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    mask = valid[:, None, None, :]
-    recs["synapse_attention"]["zamba2"] = dict(
-        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
-        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
-        shape=list(SYN_ZAMBA), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
-    # and at a long key set, whose scores spill (qwen2-vl's and qwen1.5's heads)
-    B, H, Hkv, D, T = SYN_LONG
-    q, k, v, valid, _ = inputs(SYN_LONG, torch.bfloat16)
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    mask = valid[:, None, None, :]
-    recs["synapse_attention"]["long_t"] = dict(
-        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
-        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
-        shape=list(SYN_LONG), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
-    # and at qwen3-8b's, the long-context example's (one lane)
-    B, H, Hkv, D, T = SYN_QWEN3
-    q, k, v, valid, _ = inputs(SYN_QWEN3, torch.bfloat16)
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    mask = valid[:, None, None, :]
-    recs["synapse_attention"]["qwen3_8b"] = dict(
-        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
-        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
-        shape=list(SYN_QWEN3), plan=str(sa.launch_plan(B, T, H, Hkv, D, 2)))
+    def synapse_row(shape):
+        B, H, Hkv, D, T = shape
+        q, k, v, valid, _ = inputs(shape, torch.bfloat16)
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = valid[:, None, None, :]
+        return dict(
+            ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
+            plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+            **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
+            shape=list(shape), plan=str(sa.card_plan(dev, B, T, H, Hkv, D, 2)))
+
+    # the same at zamba2's shapes (its shared block: H = Hkv = 32, D = 64), at
+    # a long key set (qwen2-vl's and qwen1.5's heads), at qwen3-8b's one-lane
+    # side decode (the long-context example's), and at the long_500k decode
+    # with qwen3-8b's and with qwen1.5-110b's heads
+    for sub, shape in (("zamba2", SYN_ZAMBA), ("long_t", SYN_LONG), ("qwen3_8b", SYN_QWEN3),
+                       ("long500k_qwen3_8b", SYN_LONG500K[0]), ("long500k_qwen1_5", SYN_LONG500K[1])):
+        recs["synapse_attention"][sub] = synapse_row(shape)
     B, H, Hkv, D, T = LM_ZAMBA
     q, k, _, _, _ = inputs(LM_ZAMBA, torch.bfloat16)
     qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
@@ -2201,6 +2230,65 @@ def drive_train_mesh(card: str, train_step_ms: float) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the reference's long_500k decode
+# ---------------------------------------------------------------------------
+LONG500K_ARCH = "qwen3-8b"
+LONG500K_LAYERS = 8   # of 36: every layer's attend is the same launch at the same T
+LONG500K_STEPS = 20
+
+
+def drive_long500k(card: str, dev="cuda") -> dict:
+    """Phase 12: ``long_500k``'s decode shape on qwen3-8b's published widths
+    (``LONG500K_LAYERS`` layers): ``LONG500K_STEPS`` greedy steps through
+    ``model.decode_step`` over a synapse cache of the shape's ``CacheSpec``,
+    the launch counters zeroed just before and read just after. Returns
+    the kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import synapse_attention as sa
+    from repro_torch.launch import specs
+    from repro_torch.models import model as tm
+
+    t0 = time.perf_counter()
+    full = get_config(LONG500K_ARCH)
+    cfg = dataclasses.replace(full, param_dtype="bfloat16", n_layers=LONG500K_LAYERS)
+    plan = specs.plan_for(cfg, "long_500k")
+    spec = specs.cache_spec_for(plan)
+    if plan.cache_kind != "synapse" or (spec.n_landmarks, spec.window, spec.n_inject) != (4096, 1024, 128):
+        raise AssertionError(f"long_500k: {plan}, {spec}")
+    B, T = plan.batch, spec.n_landmarks + spec.window + spec.n_inject
+    params = tm.cast_params(tm.init_params(cfg, seed=0, device=dev), cfg)
+    caches = tm.init_caches(cfg, B, spec, device=dev)
+    on_card = torch.device(dev).type == "cuda"  # the CPU takes the plain version: no plan
+    log(f"long_500k: {cfg.name} L={cfg.n_layers} of {full.n_layers} d_model={cfg.d_model} B={B} T={T} "
+        f"plan {sa.card_plan(dev, B, T, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 2) if on_card else None}")
+    tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    times = []
+    for t in range(LONG500K_STEPS):
+        t1 = time.perf_counter()
+        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        logits, _, caches = tm.decode_step(params, cfg, {"tokens": tok, "positions": pos}, caches, spec=spec)
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    counts = ops.launch_counts()
+    want = {"landmark_score": 0, "synapse_attention": cfg.n_layers * LONG500K_STEPS}
+    finite = bool(torch.isfinite(logits).all())
+    if counts != want or not finite or tuple(logits.shape) != (B, cfg.vocab_size):
+        raise AssertionError(f"long_500k: launches {counts} (want {want}), finite {finite}, logits {logits.shape}")
+    log(json.dumps({"long_500k": cfg.name, "card": card, "layers": cfg.n_layers, "of_layers": full.n_layers,
+                    "d_model": cfg.d_model, "batch": B, "keys": T, "spec": dataclasses.asdict(spec),
+                    "steps": LONG500K_STEPS, "ms_per_step": statistics.median(times[1:]) * 1e3,
+                    "logits_finite": finite, "launches": counts,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "phase_s": time.perf_counter() - t0}))
+    del params, caches
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device found (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2242,6 +2330,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_mesh = drive_train_mesh(card, train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    long500k = drive_long500k(card)
 
     kernels = [dict(recs[name], launches=counts[name], serving_launches=serving[name],
                     tiers_launches=tiers[name], zamba2_launches=families["zamba2"][name],
@@ -2249,12 +2340,12 @@ def main() -> int:
                     council_launches=examples["council"][name],
                     long_context_launches=examples["long_context"][name],
                     quickstart_launches=examples["quickstart"][name], lane_group_launches=lanes[name],
-                    train_mesh_launches=train_mesh[name])
+                    train_mesh_launches=train_mesh[name], long500k_launches=long500k[name])
                for name in ops.KERNELS]
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)
-        for sub in ("zamba2", "long_t", "qwen3_8b"):
+        for sub in ("zamba2", "long_t", "qwen3_8b", "long500k_qwen3_8b", "long500k_qwen1_5"):
             for key in ("bytes", "flops", "plan"):
                 k.get(sub, {}).pop(key, None)
     log(json.dumps({"kernels": kernels}))

@@ -122,6 +122,15 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def function(self, symbol: str, argtypes: list):
+        """Another C function of the kernel's library, returning an int
+        error code: a query, which launches nothing and counts nothing."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args):
         """Call the C entry point on the current stream; raise when the
         launch was refused (its ``cudaGetLastError`` is not 0)."""

@@ -178,10 +178,6 @@ __device__ __forceinline__ void fence_mbar_init() {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
 // The one arrival on `bar` (arrival count 1), announcing `bytes` of bulk
 // copies that complete on it.
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {

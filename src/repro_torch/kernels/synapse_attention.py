@@ -20,100 +20,185 @@ from repro_torch.kernels.build import CudaKernel, align16
 from repro_torch.kernels.ref import synapse_attention_ref
 
 MAX_SMEM = 232_448   # bytes of shared memory a block may use on sm_90
+SMEM_PER_SM = 233_472  # of which each resident block also takes 1 KB
 THREADS = 256
-MAX_CLUSTER = 8      # the portable cluster size
-KEYS_PER_CTA = 32    # C = min(MAX_CLUSTER, ceil(T / KEYS_PER_CTA))
-MAX_SLICES = 8       # key slices of p.V, summed in order at the end
+MAX_CLUSTER = 16     # ranges per (lane, kv head): one cluster, non-portable above 8
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the cluster sizes a plan may take, and ``resident_ctas`` reads
+MIN_KEYS = 32        # keys a range keeps at least, where T allows
+TWO_PER_SM = SMEM_PER_SM // 2 - 1024  # shared memory a CTA may take with another beside it
+KV_SLOTS_BYTES = 16384  # the kv heads share a cluster where their mass slots of a range fit in this
+STAGE_BYTES = 32768  # bytes of K or V one ring stage holds, about
+MAX_STAGES = 8
+MAX_SLICES = 8       # key slices of the f32 p.V, summed in order at the end
+UPW = 4              # bf16 p.V: (16 d x 8 g) accumulator tiles a warp holds at most
+BAR_BYTES = 128      # the mbarriers and the ticket flag
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "synapse_attention", "synapse_attention_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    [_P] * 8 + [_I] * 13 + [ctypes.c_float, _I, _P],
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """Geometry of one launch: a grid of (cluster, B) CTAs of ``THREADS``
-    threads, clusters of ``cluster`` CTAs, one per lane. CTA r owns the
-    keys ``ranges[r]``; its K and V pass through a two-stage ring of
-    ``chunk_keys`` keys, ``n_chunks`` chunks a pass (1 when the range fits
-    whole); p.V splits the keys into ``slices``; ``smem`` bytes of dynamic
-    shared memory per CTA. With ``spill`` the range's H x n_max f32 scores
-    do not fit in shared memory and live in a [B, cluster, H, n_max] f32
-    workspace in device memory instead."""
+    """Geometry of one launch: a grid of (cluster, Hkv, B) CTAs of
+    ``THREADS`` threads, one per (key range, kv head, lane); a cluster is
+    the ``cluster`` ranges of ``kv_cluster`` kv heads (1, or all Hkv) of a
+    lane. CTA r owns the keys ``ranges[r]`` of its kv head; its K and V
+    pass through a ring of ``stages`` stages of ``chunk_keys`` keys (one
+    tensor-map tile each), each key ``stage_row`` bytes, ``n_chunks``
+    chunks a pass; its G x n_max f32 scores stay in shared memory, rows
+    ``score_pitch`` floats apart; p.V splits the keys into
+    ``slices``; ``smem`` bytes of dynamic shared memory per CTA. The mass
+    over kv heads is summed in the cluster's shared memory where
+    ``kv_cluster`` > 1; else, with ``mass_parts`` (Hkv > 1), through a
+    [B, Hkv, T] f32 workspace and a [B, cluster] int32 ticket counter."""
 
     cluster: int
+    kv_cluster: int
     ranges: tuple[tuple[int, int], ...]
     n_max: int
     chunk_keys: int
     n_chunks: int
+    stages: int
+    stage_row: int
+    score_pitch: int
     slices: int
     smem: int
-    grid: tuple[int, int]
-    spill: bool = False
+    grid: tuple[int, int, int]
+    mass_parts: bool
     threads: int = THREADS
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int) -> LaunchPlan:
+def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int, resident: tuple[int, ...], *,
+                stage_bytes: int = STAGE_BYTES, max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
     """The launch geometry for q [B,H,D] and keys/values [B,T,Hkv,D] of
-    ``elem_bytes`` per value; the kernel carves its shared memory by the
-    same sums (``smem_bytes`` in the source) and refuses a plan that
-    disagrees.
+    ``elem_bytes`` per value (2: bf16 on tensor cores; 4: f32) on a card
+    that holds ``resident[i]`` CTAs at once, two an SM, in clusters of
+    ``CLUSTER_SIZES[i]`` (:func:`resident_ctas` reads them); the kernel
+    carves its shared memory by the same sums (``smem_bytes`` in the
+    source) and refuses a plan that disagrees.
 
-    A range whose scores (H x n_max f32) do not fit in shared memory beside
-    the queries spills them to device memory (``spill``); every plan whose
-    scores fit is the same as without that branch.
+    The ranges per (lane, kv head): the most, a power of two up to
+    ``max_cluster`` and at most T // ``MIN_KEYS``, whose grid the card holds
+    in one wave; more, at the cost of a second wave, where a range's scores
+    and ring would not fit in shared memory. Then as many ring stages of
+    about ``stage_bytes`` (up to ``MAX_STAGES``) as the shared memory leaves
+    room for, with a second CTA on the SM where the grid needs it. The kv
+    heads of a lane join the cluster where C x Hkv is a cluster the card
+    holds in one wave too and their mass slots of a range take at most
+    ``KV_SLOTS_BYTES``.
 
     Raises ValueError naming the reason where the kernel cannot take the
     shape: a kv head's key row whose bytes are not a multiple of 16 (the
-    bulk copy and the 16-byte loads need it), or queries and p.V sums that
-    alone leave no room for one key of K/V in shared memory.
+    bulk and tensor-map copies need it), more f32 columns than one
+    tensor-map box takes, a bf16 head width that is not a multiple of 16 (the
+    tensor-core step), more bf16 p.V tiles than the warps hold, or scores and
+    ring that do not fit in shared memory even at ``max_cluster`` ranges.
     """
     if T < 1 or B < 1:
         raise ValueError(f"synapse_attention: empty input (B={B}, T={T})")
     if (D * elem_bytes) % 16:
         raise ValueError(f"synapse_attention: a key row of one kv head is D x {elem_bytes} = {D * elem_bytes} "
-                         f"bytes, not a multiple of 16 (the bulk copy and 16-byte loads need it)")
-    C = min(MAX_CLUSTER, -(-T // KEYS_PER_CTA))
-    ranges = tuple((r * T // C, (r + 1) * T // C) for r in range(C))
-    n_max = max(b - a for a, b in ranges)
-    row = Hkv * D * elem_bytes
-    chunks_per_row = D * elem_bytes // 16
-    # mbarriers, q as copied and in f32, (m_r, l_r) with the peers' and the
-    # combine weights, the peers' partial outputs, valid flags; and the
-    # scores, unless they spill
-    fixed = (32 + H * D * (elem_bytes + 4) + align16((2 + 3 * C) * H * 4)
-             + align16(C * -(-H * D // C) * 4) + align16(n_max))
-    # p.V key slices: as many as keep all threads busy; fewer where that
-    # lets the whole range sit in the ring, or else leaves chunks of at
-    # least a warp's worth of keys
-    cands = [min(MAX_SLICES, max(1, THREADS // (Hkv * chunks_per_row)))]
-    while cands[-1] > 1:
-        cands.append(cands[-1] // 2)
+                         f"bytes, not a multiple of 16 (the bulk and tensor-map copies need it)")
+    tc = elem_bytes == 2
+    G = H // Hkv
+    if not tc and D > 256:
+        raise ValueError(f"synapse_attention: D={D} f32 columns exceed the 256 of one tensor-map box")
+    if tc and D % 16:
+        raise ValueError(f"synapse_attention: D={D} is not a multiple of 16, the depth of a bf16 tensor-core step")
+    n_units = D // 16 * -(-G // 8)
+    if tc and n_units > UPW * THREADS // 32:
+        raise ValueError(f"synapse_attention: G={G} query rows of D={D} make {n_units} p.V tiles of 16 x 8, "
+                         f"more than the {UPW * THREADS // 32} the warps hold")
+    res = dict(zip(CLUSTER_SIZES, resident))
+    row = 128 * -(-D // 64) if tc else D * 4
+    if tc:
+        slices = 1 if n_units >= THREADS // 32 else THREADS // 32 // n_units
+    else:
+        slices = min(MAX_SLICES, max(1, THREADS // (D * elem_bytes // 16)))
+    GD = G * D
+    q_bytes = 8 * -(-G // 8) * (D * 2 + 16) if tc else GD * 4
 
-    def geometry(fixed):
-        room = lambda s: (MAX_SMEM - fixed - s * H * D * 4) // (2 * row)
-        slices = next((s for s in cands if room(s) >= n_max), None) or \
-            next((s for s in cands if room(s) >= KEYS_PER_CTA), 1)
-        base = fixed + slices * H * D * 4
-        return slices, base, min(n_max, (MAX_SMEM - base) // (2 * row)) if base < MAX_SMEM else 0
+    def geometry(C):
+        ranges = tuple((r * T // C, (r + 1) * T // C) for r in range(C))
+        n_max = max(b - a for a, b in ranges)
+        HC = Hkv if (Hkv > 1 and C * Hkv in res and B * Hkv * C <= res[C * Hkv]
+                     and Hkv * n_max * 4 <= KV_SLOTS_BYTES) else 1
+        ck = min(-(-n_max // 16) * 16, max(16, stage_bytes // row // 16 * 16), 256)
+        nk = -(-n_max // ck)
+        score_pitch = -(-n_max // 32) * 32 + 8
+        base = (1024 + BAR_BYTES + align16(q_bytes) + align16(G * score_pitch * 4) + slices * GD * 4
+                + align16((2 + 3 * C) * G * 4) + align16(C * -(-GD // C) * 4) + align16(n_max)
+                + (align16(HC * n_max * 4) if HC > 1 else 0))
+        budget = TWO_PER_SM if B * Hkv * C > res[C * HC] // 2 else MAX_SMEM
+        stages = max(2, min(MAX_STAGES, 2 * nk, (budget - base) // (ck * row)))
+        return LaunchPlan(
+            cluster=C, kv_cluster=HC, ranges=ranges, n_max=n_max, chunk_keys=ck, n_chunks=nk, stages=stages,
+            stage_row=row, score_pitch=score_pitch, slices=slices, smem=base + stages * ck * row, grid=(C, Hkv, B),
+            mass_parts=Hkv > 1 and HC == 1,
+        )
 
-    spill = False
-    slices, base, chunk_keys = geometry(fixed + align16(H * n_max * 4))
-    if chunk_keys < 1:
-        spill = True
-        slices, base, chunk_keys = geometry(fixed)
-    if chunk_keys < 1:
-        raise ValueError(f"synapse_attention: the queries and p.V sums of H={H} heads of D={D} ({base} bytes) "
-                         f"leave no room for one key of K/V in the {MAX_SMEM}-byte shared-memory limit")
-    return LaunchPlan(
-        cluster=C, ranges=ranges, n_max=n_max, chunk_keys=chunk_keys,
-        n_chunks=-(-n_max // chunk_keys), slices=slices, smem=base + 2 * chunk_keys * row, grid=(C, B),
-        spill=spill,
-    )
+    C = 1
+    while 2 * C <= min(max_cluster, T // MIN_KEYS) and B * Hkv * 2 * C <= res[2 * C]:
+        C *= 2
+    plan = geometry(C)
+    while plan.smem > MAX_SMEM and 2 * C <= min(max_cluster, T):
+        C *= 2
+        plan = geometry(C)
+    if plan.smem > MAX_SMEM:
+        raise ValueError(f"synapse_attention: a range of {plan.n_max} keys needs {plan.smem} bytes of shared memory "
+                         f"for its G={G} rows of scores and the K/V ring, more than the {MAX_SMEM}-byte "
+                         f"shared-memory limit, even at {C} ranges")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def resident_ctas(device_index: int) -> tuple[int, ...]:
+    """The CTAs of the kernel that card ``device_index`` holds at once at two
+    an SM, in clusters of each of ``CLUSTER_SIZES``:
+    cudaOccupancyMaxActiveClusters times the cluster's CTAs. Clusters pack
+    the GPCs unevenly, so the larger ones leave SMs idle. Read once per
+    card, from the bf16 instantiation (both hold two 256-thread CTAs an SM
+    by their registers: ``__launch_bounds__``)."""
+    fn = KERNEL.function("synapse_attention_resident_clusters", [_I] * 4 + [ctypes.POINTER(_I)])
+    ctas = []
+    with torch.cuda.device(device_index):
+        for size in CLUSTER_SIZES:
+            n = _I(-1)
+            err = fn(size, 1, TWO_PER_SM, 1, ctypes.byref(n))
+            if err:
+                raise RuntimeError(f"synapse_attention: cudaOccupancyMaxActiveClusters failed for clusters of "
+                                   f"{size}: cudaError {err}")
+            ctas.append(n.value * size)
+    return tuple(ctas)
+
+
+def card_plan(device, B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int, **kw) -> LaunchPlan:
+    """:func:`launch_plan` on the CUDA ``device``, at what it holds."""
+    return launch_plan(B, T, H, Hkv, D, elem_bytes, resident_ctas(torch.device(device).index or 0), **kw)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, n: int):
+    """The kernel's ticket counters for the current stream: zeros between
+    launches (the last CTA of each (lane, range) resets its own), at least
+    ``n`` of them; one buffer per device and stream, so launches on two
+    streams never share one."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def _check(q, keys, values, valid):
@@ -155,13 +240,22 @@ def synapse_attention(q, keys, values, valid, *, scale: float | None = None):
         return synapse_attention_ref(q, keys, values, valid, scale=scale)
     _check(q, keys, values, valid)
     T, Hkv = keys.shape[1], keys.shape[2]
-    plan = launch_plan(B, T, H, Hkv, D, q.element_size())
+    return launch(card_plan(q.device, B, T, H, Hkv, D, q.element_size()), q, keys, values, valid, scale)
+
+
+def launch(plan: LaunchPlan, q, keys, values, valid, scale: float):
+    """One launch of the kernel under ``plan`` on inputs that passed the
+    wrapper's checks: allocates out, mass and, where the plan sums the mass
+    over kv heads in device memory, its workspace."""
+    (B, H, D), T, Hkv = q.shape, keys.shape[1], keys.shape[2]
     out = torch.empty_like(q)
     mass = torch.empty((B, T), dtype=torch.float32, device=q.device)
-    ws = torch.empty((B, plan.cluster, H, plan.n_max), dtype=torch.float32, device=q.device) if plan.spill else None
+    parts = torch.empty((B, Hkv, T), dtype=torch.float32, device=q.device) if plan.mass_parts else None
+    tickets = _tickets(q.device, B * plan.cluster) if plan.mass_parts else None
     KERNEL.launch(
         q.data_ptr(), keys.data_ptr(), values.data_ptr(), valid.data_ptr(), out.data_ptr(), mass.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, T, Hkv, H // Hkv, D, plan.cluster, plan.n_max, plan.chunk_keys, plan.n_chunks, plan.slices,
-        plan.smem, float(scale), _DTYPES[q.dtype],
+        None if parts is None else parts.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        B, T, Hkv, H // Hkv, D, plan.cluster, plan.kv_cluster, plan.n_max, plan.chunk_keys, plan.n_chunks, plan.stages,
+        plan.slices, plan.smem, float(scale), _DTYPES[q.dtype],
     )
     return out, mass

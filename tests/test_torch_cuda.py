@@ -32,7 +32,8 @@ SHAPES = [
     (24, 14, 2, 64, 1024),   # a spawn's sweep of the paper's model
     (2, 40, 2, 64, 96),      # G = 20: more rows than the kernels hold in registers at once
     (2, 8, 2, 64, 1),        # one key: a cluster of one CTA, a one-key tile
-    (2, 8, 2, 64, 33),       # two ranges of 16 and 17 keys; a ragged tile
+    (2, 8, 2, 64, 33),       # one range of 33 keys; a ragged tile
+    (2, 8, 2, 64, 65),       # two ranges of 32 and 33 keys; a ragged tile past the lane's end
     (2, 16, 8, 64, 4096),    # Hkv = 8 at the longest T: streamed K/V chunks
     # the other families' (H, Hkv, D) at their side decode's T = K + W + J
     # and a spawn's T = 1024
@@ -121,7 +122,7 @@ def test_invalid_cta_range_and_lane_on_card(card, dtype):
     lane with no valid key at all (uniform weights, no NaN)."""
     shape = (3, 14, 2, 64, 144)
     q, k, v, valid = _inputs(shape, dtype, card, seed=2)
-    plan = sa.launch_plan(3, 144, 14, 2, 64, q.element_size())
+    plan = sa.card_plan(card, 3, 144, 14, 2, 64, q.element_size())
     a, b = plan.ranges[2]
     valid[0, a:b] = False
     valid[1] = False
@@ -133,21 +134,25 @@ def test_invalid_cta_range_and_lane_on_card(card, dtype):
     torch.testing.assert_close(mass[1], torch.full_like(mass[1], 14 / 144), rtol=1e-5, atol=1e-6)
 
 
-# (B, H, Hkv, D, T) whose ranges' f32 scores do not fit in shared memory
-# beside the queries: the kernel spills them to a device workspace
-LONG_T = [(8, 64, 8, 128, 4096), (1, 32, 2, 64, 16384)]
+# (B, H, Hkv, D, T): long key sets, among them the reference's long_500k
+# decode on one lane (T = 4096 + 1024 + 128), one lane at T = 32,768, and 8
+# lanes at T = 16,384, whose scores fit only at more ranges than one wave
+# holds
+LONG_T = [(8, 64, 8, 128, 4096), (1, 32, 2, 64, 16384), (1, 32, 8, 128, 5248), (1, 64, 8, 128, 5248),
+          (1, 32, 8, 128, 32768), (1, 64, 8, 128, 32768), (8, 64, 8, 128, 16384)]
 
 
 @pytest.mark.parametrize("shape", LONG_T)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_synapse_attention_long_key_sets(card, shape, dtype):
-    """The spilled plan against the plain version, with masked keys (about
-    30 %), one CTA's whole range of lane 0 masked, and bitwise repeats."""
+    """Long key sets against the plain version, with masked keys (about
+    30 %), the last CTA range of lane 0 masked, and bitwise repeats; the
+    scores stay in shared memory."""
     B, H, Hkv, D, T = shape
     q, k, v, valid = _inputs(shape, dtype, card, seed=3)
-    plan = sa.launch_plan(B, T, H, Hkv, D, q.element_size())
-    assert plan.spill
-    a, b = plan.ranges[3]
+    plan = sa.card_plan(card, B, T, H, Hkv, D, q.element_size())
+    assert plan.cluster > 1 and plan.smem <= sa.MAX_SMEM
+    a, b = plan.ranges[-1]
     valid[0, a:b] = False
     before = sa.KERNEL.launches
     out, mass = sa.synapse_attention(q, k, v, valid)
@@ -160,6 +165,34 @@ def test_synapse_attention_long_key_sets(card, shape, dtype):
     assert float(mass[0, a:b].abs().max()) == 0.0
     again = sa.synapse_attention(q, k, v, valid)
     assert torch.equal(again[0], out) and torch.equal(again[1], mass)
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 8, 128, 4096), (1, 64, 8, 128, 5248), (8, 14, 2, 64, 144),
+                                   (8, 32, 32, 64, 144)])
+def test_synapse_attention_allocates_no_score_workspace(card, shape):
+    """A call allocates its outputs and the [B, Hkv, T] f32 mass per kv head,
+    nothing for the scores (G x n_max f32 a CTA, in shared memory)."""
+    extra, want = _smoke().synapse_extra_bytes(*_inputs(shape, torch.bfloat16, card))
+    assert extra <= want
+    B, H, Hkv, D, T = shape
+    plan = sa.card_plan(card, B, T, H, Hkv, D, 2)
+    assert want < B * plan.cluster * H * plan.n_max * 4 or plan.cluster == 1  # what the scores would take
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2, 64, 33), (2, 14, 2, 64, 150), (2, 32, 8, 128, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_synapse_attention_keeps_lanes_apart(card, shape, dtype):
+    """Non-finite keys and values in lane 1 (a diverged request) leave lane
+    0 equal to the plain version on lane 0 alone: the last chunk of a lane's
+    range runs past its T (ragged at these shapes), and must read zeros
+    there, not the next lane's rows."""
+    q, k, v, valid = _inputs(shape, dtype, card, seed=4)
+    k[1, ::2], k[1, 1::2] = float("nan"), float("inf")
+    v[1, ::2], v[1, 1::2] = float("inf"), float("nan")
+    out, mass = sa.synapse_attention(q, k, v, valid)
+    out_r, mass_r = ref.synapse_attention_ref(q[:1], k[:1], v[:1], valid[:1])
+    torch.testing.assert_close(out[:1].float(), out_r.float(), **_tol(dtype))
+    torch.testing.assert_close(mass[:1], mass_r, **_tol(dtype))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

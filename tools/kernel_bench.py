@@ -16,10 +16,12 @@ median of 50) at the full batch and at B = 1, and the host time to enqueue
 one call (mean of 2000, no sync inside). ``floor_ms`` is the same timing
 around a one-element ``add_``: the launch and event overhead any single
 kernel pays. With ``--sweep`` it also times ``landmark_score`` at tiles
-of 32 to 256 keys and 7, 4 or 2 query rows per pass (this tree's kernel
-only). With ``--tick`` it also drives the Qwen2.5-0.5B engine at full
-width as ``chip_smoke.py`` does and reports the median tick over four
-timed windows after a warm-up window.
+of 32 to 256 keys and 7, 4 or 2 query rows per pass, and
+``synapse_attention`` with ring stages of 16 to 64 KB and at most 4 or 16
+ranges a (lane, kv head) (this tree's kernels only). With
+``--tick`` it also drives the Qwen2.5-0.5B engine at full width as
+``chip_smoke.py`` does and reports the median tick over four timed
+windows after a warm-up window.
 """
 from __future__ import annotations
 
@@ -66,6 +68,33 @@ def kernel_times() -> dict:
             r[f"B{B}_ms"] = cs.time_ms(lambda: call(q, k, v, valid), iters=50)
         r["host_us"] = host_us(lambda: call(q, k, v, valid))  # at the full batch
         rec[name] = r
+    return rec
+
+
+def synapse_sweep() -> dict:
+    """``synapse_attention`` at the long key set and the long_500k decode
+    shape under other launch plans: ring stages of 16, 32 or 64 KB, and at
+    most 4 or 16 ranges a (lane, kv head), launched through the wrapper's
+    ``launch``; each output must match the wrapper's within the bf16
+    tolerance (the ranges change the order of the sums)."""
+    from repro_torch.kernels import synapse_attention as sa
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rec = {}
+    for shape in (cs.SYN_LONG, cs.SYN_LONG500K[0]):
+        B, H, Hkv, D, T = shape
+        q, k, v, valid, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
+        want = sa.synapse_attention(q, k, v, valid)
+        for stage_bytes in (16384, 32768, 65536):
+            for max_cluster in (4, 16):
+                plan = sa.card_plan(q.device, B, T, H, Hkv, D, 2, stage_bytes=stage_bytes, max_cluster=max_cluster)
+                call = lambda: sa.launch(plan, q, k, v, valid, D ** -0.5)
+                out, mass = call()
+                torch.testing.assert_close(out.float(), want[0].float(), rtol=2e-2, atol=2e-2)
+                torch.testing.assert_close(mass, want[1], rtol=2e-2, atol=2e-2)
+                rec[f"{'x'.join(map(str, shape))}_stage{stage_bytes // 1024}k_cmax{max_cluster}"] = {
+                    "cluster": plan.cluster, "ctas": plan.ctas, "stages": plan.stages, "chunk_keys": plan.chunk_keys,
+                    "ms": cs.time_ms(call, iters=50)}
     return rec
 
 
@@ -119,7 +148,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--tick", action="store_true")
-    ap.add_argument("--sweep", action="store_true", help="also time landmark_score's other launch plans")
+    ap.add_argument("--sweep", action="store_true", help="also time both kernels' other launch plans")
     ap.add_argument("--label", default="")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -132,6 +161,7 @@ def main() -> int:
     rec = {"label": a.label, "root": a.root, "card": cs.card_line(), **kernel_times()}
     if a.sweep:
         rec["landmark_sweep"] = landmark_sweep()
+        rec["synapse_sweep"] = synapse_sweep()
     if a.tick:
         rec["tick_ms"] = tick_ms()
     print(json.dumps(rec), flush=True)

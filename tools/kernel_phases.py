@@ -12,7 +12,9 @@ phase, not the kernel's time (``chip_smoke.py`` and ``tools/kernel_bench.py``
 time the kernel itself). The stamped library stands in for the kernel's own
 behind its wrapper, so the launches take the wrapper's plan and arguments.
 Each kernel runs at the main path's shapes in bf16, at the full batch and
-at B = 1, with the L2 flushed before each run; the script prints one JSON
+at B = 1 (``synapse_attention`` also at the long key set ``SYN_LONG`` and
+at qwen3-8b's one-lane side decode ``SYN_QWEN3``), with the L2 flushed
+before each run; the script prints one JSON
 line per case: for each phase the median and largest cycle count over the
 blocks, and the nanoseconds from the first block's start to the last
 block's end.
@@ -36,7 +38,7 @@ MARKS, MAX_BLOCKS = 8, 8192
 HEADER = f"""
 __device__ unsigned long long g_stamp[{MAX_BLOCKS * MARKS * 2}];
 #define PHASE_MARK(i) do {{ __syncthreads(); if (threadIdx.x == 0) {{ \\
-    unsigned long long* s_ = g_stamp + ((blockIdx.y * gridDim.x + blockIdx.x) * {MARKS} + (i)) * 2; \\
+    unsigned long long* s_ = g_stamp + (((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * {MARKS} + (i)) * 2; \\
     s_[0] = clock64(); asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(s_[1])); }} }} while (0)
 #define PHASE_ONLY(...) __VA_ARGS__
 extern "C" int stamps_read(void* dst) {{ return (int)cudaMemcpyFromSymbol(dst, g_stamp, sizeof(g_stamp)); }}
@@ -44,7 +46,7 @@ extern "C" int stamps_read(void* dst) {{ return (int)cudaMemcpyFromSymbol(dst, g
 PHASES = {  # the phase that ends at mark i + 1
     "landmark_score": ["copies issued, q staged", "keys landed", "density logits"],
     "synapse_attention": ["copies issued, q staged", "scores", "softmax statistics", "p~.V", "exchange",
-                          "combine, out, mass"],
+                          "combine, out, mass part", "mass over kv heads"],
 }
 
 
@@ -104,11 +106,12 @@ def main() -> int:
         q, k, _, _, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
         plan = ls.launch_plan(B, T, H, Hkv, D, 0, 2)
         report("landmark_score", f"B={B} T={T} density-only", lambda: ls.landmark_score(q, k), plan.grid[0] * B)
-    for shape in (cs.SYN_MAIN, (1,) + cs.SYN_MAIN[1:]):
+    for shape in (cs.SYN_MAIN, (1,) + cs.SYN_MAIN[1:], cs.SYN_LONG, cs.SYN_QWEN3):
         B, H, Hkv, D, T = shape
         q, k, v, valid, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
-        plan = sa.launch_plan(B, T, H, Hkv, D, 2)
-        report("synapse_attention", f"B={B} T={T}", lambda: sa.synapse_attention(q, k, v, valid), plan.cluster * B)
+        plan = sa.card_plan(q.device, B, T, H, Hkv, D, 2)
+        report("synapse_attention", f"B={B} H={H} Hkv={Hkv} D={D} T={T}",
+               lambda: sa.synapse_attention(q, k, v, valid), plan.ctas)
     return 0
 
 
