@@ -14,11 +14,19 @@ Phases, each failing the run on its own failure:
    f32 (rtol = atol = 1e-5) and bf16 (2e-2), and ``synapse_attention`` at
    long key sets (H = 64 at T = 4096, H = 32 at T = 16384, and the
    reference's ``long_500k`` decode on one lane, T = 5248, with qwen3-8b's
-   and qwen1.5-110b's heads; one CTA's range masked), both
-   ``landmark_score`` branches, each twice to check that the results
-   repeat bitwise; check that ``synapse_attention`` allocates no more
-   device memory than its outputs and its [B, Hkv, T] mass workspace; time
-   the kernel, the plain version and a one-call library yardstick. Each
+   and qwen1.5-110b's heads; one CTA's range masked), ``landmark_score``
+   in both modes (logits, and density under the valid mask: also a
+   river's prefix mask, a lane with no valid key, and qwen3-8b's and
+   qwen1.5-110b's heads at T = 32,768), with and without landmarks, each
+   call twice to check that the results repeat bitwise; check that
+   ``synapse_attention`` allocates no more device memory than its outputs
+   and its [B, Hkv, T] mass workspace, and ``landmark_score``'s density
+   mode no more than its output; time the kernel, the plain version and a
+   library yardstick (one call; for the density rows the composition
+   ``torch.matmul`` + ``where`` + ``softmax`` + ``sum``), ``landmark_score``
+   at Qwen2.5-0.5B's and zamba2's spawns in both modes (rows 3, 3z, 3d,
+   3zd) and, after phase 4, at the mask of phase 4's first spawn (row
+   3d-spawn, its bound counting the keys of the tiles loaded). Each
    kernel's log line also shows its time before the redesign
    (``EARLIER_MS``, a constant: the ``kernels`` line carries only numbers
    this run measured, and ``bound_ms``).
@@ -28,7 +36,8 @@ Phases, each failing the run on its own failure:
    vocab 151936, bf16, random weights from a seed) in a CortexEngine whose
    prompt spawns side agents, until every side has merged. Launch counters
    are zeroed just before and read just after; one steady window runs under
-   ``torch.cuda.set_sync_debug_mode("error")``.
+   ``torch.cuda.set_sync_debug_mode("error")``. The first spawn's valid
+   mask is kept for row 3d-spawn and its valid length printed.
 5. Serve at full width through the serving entry point's classes (the
    front end over each backend, as ``repro_torch.launch.serve`` builds
    them): the pipelined, adaptive-window CortexEngine with four requests
@@ -191,9 +200,14 @@ SYN_LONG500K = [(1, 32, 8, 128, 4096 + 1024 + 128), (1, 64, 8, 128, 4096 + 1024 
 # the long-context example's side decode: qwen3-8b's heads, one lane,
 # T = K + W + J = 32 + 32 + 4
 SYN_QWEN3 = (1, 32, 8, 128, 32 + 32 + 4)
+# density mode at long key sets, one lane: qwen3-8b's and qwen1.5-110b's
+# heads at T = 32,768 (a kv-head group a kv head, their parts summed through
+# the workspace), and 32 heads of one kv head, whose range's logits do not
+# stay in shared memory (two sweeps)
+LM_LONG = [(1, 32, 8, 128, 32768), (1, 64, 8, 128, 32768), (1, 32, 1, 64, 32768)]
 # The kernels' times before their latest redesign, main-path shapes, bf16,
 # L2 flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_MS = {"synapse_attention": 0.01253, "landmark_score": 0.0592}
+EARLIER_MS = {"synapse_attention": 0.01253, "landmark_score": 0.01128}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TIMED_WINDOWS = 5  # main-path windows timed (the first is warm-up), then one profiled
 
@@ -232,6 +246,22 @@ def time_ms(fn, iters: int = 30) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def check_density(dens, dens_r, dtype, H: int) -> None:
+    """Density mode against its plain version, and each lane's sum against
+    H within 1e-4 (a lane with no valid key too: H / T at every key). A
+    lane's density sums to H over T keys, so bf16's 2e-2 would pass a kernel
+    that wrote zeros at T of a few thousand; bf16 logits are exact in f32,
+    so bf16 density is held at 1e-3 relative to its own scale H / T (never
+    looser than TOL), f32 at TOL."""
+    T = dens_r.shape[-1]
+    if dtype == torch.float32:
+        t = dict(rtol=TOL[dtype], atol=TOL[dtype])
+    else:
+        t = dict(rtol=1e-3, atol=min(TOL[dtype], 1e-3 * H / T))
+    torch.testing.assert_close(dens, dens_r, **t)
+    torch.testing.assert_close(dens.sum(-1), torch.full_like(dens[:, 0], H), rtol=1e-4, atol=0)
 
 
 def bound(byts: int, flops: int) -> dict:
@@ -273,6 +303,83 @@ def synapse_extra_bytes(q, k, v, valid) -> tuple[int, int]:
     return extra, q.numel() * q.element_size() + B * T * 4 + (B * Hkv * T * 4 if parts else 0)
 
 
+def landmark_extra_bytes(q, k, valid) -> tuple[int, int]:
+    """(device bytes one density-mode ``ops.landmark_score`` call allocates
+    beyond its inputs at its peak, the bytes of its density output and of
+    its plan's [B, head_groups, T] workspace, if any). A warm call first, so
+    the ticket counters exist."""
+    from repro_torch.kernels import landmark_score as ls
+    from repro_torch.kernels import ops
+
+    ops.landmark_score(q, k, None, valid)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.landmark_score(q, k, None, valid)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    del out
+    (B, H, D), T, Hkv = q.shape, k.shape[1], k.shape[2]
+    plan = ls.card_plan(q.device, B, T, H, Hkv, D, 0, q.element_size(), density=True)
+    block = lambda n: -(-n // 512) * 512  # the caching allocator's 512-byte blocks
+    return extra, block(B * T * 4) + (block(B * plan.head_groups * T * 4) if plan.parts else 0)
+
+
+def landmark_live_keys(plan, valid) -> int:
+    """The keys a density-mode launch under ``plan`` loads: those of each
+    CTA's tiles that hold a valid key (a tile is ``chunk_keys`` keys of the
+    CTA's range)."""
+    ck, keys = plan.chunk_keys, 0
+    for a, b in plan.ranges:
+        live = valid[:, a:b].reshape(valid.shape[0], -1)
+        for t0 in range(0, b - a, ck):
+            keys += int(live[:, t0:t0 + ck].any(dim=1).sum()) * min(ck, b - a - t0)
+    return keys
+
+
+def landmark_row(dev, shape, *, density: bool, inputs, valid=None) -> dict:
+    """Times of ``landmark_score`` at ``shape`` in bf16, L2 flushed: the
+    kernel in logits mode (``ls.landmark_score``) or density mode
+    (``ops.landmark_score`` with a [B, T] mask, every key valid unless
+    ``valid`` is given), its plain version, and the library yardstick:
+    ``torch.matmul`` of the logits for logits mode, the composition
+    ``torch.matmul`` + ``where`` + ``softmax`` + ``sum`` for density mode.
+    The bound counts each input read and each output written once; in
+    density mode only the keys of tiles that hold a valid key."""
+    from repro_torch.kernels import landmark_score as ls
+    from repro_torch.kernels import ops, ref
+
+    B, H, Hkv, D, T = shape
+    q, k, _, _, _ = inputs(shape, torch.bfloat16)
+    qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
+    plan = ls.card_plan(dev, B, T, H, Hkv, D, 0, 2, density=density)
+    if not density:
+        return dict(
+            ms=time_ms(lambda: ls.landmark_score(q, k)),
+            plain_ms=time_ms(lambda: ref.landmark_score_ref(q, k)),
+            library_ms=time_ms(lambda: torch.matmul(qg, kt)),  # the logits' product alone
+            library="torch.matmul of the logits",
+            **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
+            shape=list(shape), dtype="bfloat16", plan=str(plan))
+    if valid is None:
+        valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    mask = valid[:, None, None, :]
+    scale = D ** -0.5
+
+    def composition():
+        logits = torch.matmul(qg, kt) * scale
+        return torch.softmax(torch.where(mask, logits, ref.NEG_INF), dim=-1).sum(dim=(1, 2))
+    keys = landmark_live_keys(plan, valid)
+    return dict(
+        ms=time_ms(lambda: ops.landmark_score(q, k, None, valid)),
+        plain_ms=time_ms(lambda: ref.landmark_density_ref(q, k, valid)),
+        library_ms=time_ms(composition),
+        library="composition: torch.matmul + where + softmax + sum",
+        **bound(q.numel() * 2 + keys * Hkv * D * 2 + valid.numel() + B * T * 4, 2 * B * H * keys * D),
+        valid_keys=int(valid.sum()), loaded_keys=keys,
+        shape=list(shape), dtype="bfloat16", plan=str(plan))
+
+
 def new_engine():
     """The main path's engine: Qwen2.5-0.5B at full width, random weights
     from seed 0, greedy, the ``MAIN`` settings. Returns (config, engine)."""
@@ -300,8 +407,12 @@ def check_kernels(dev):
     for shape in [SYN_MAIN, SYN_LONG] + SYN_LONG500K:
         B, H, Hkv, D, T = shape
         log(f"plan synapse_attention shape={shape} bf16: {sa.card_plan(dev, B, T, H, Hkv, D, 2)}")
-    B, H, Hkv, D, T = LM_MAIN
-    log(f"plan landmark_score shape={LM_MAIN} bf16 density-only: {ls.launch_plan(B, T, H, Hkv, D, 0, 2)}")
+    log(f"landmark_score resident CTAs by cluster size {ls.CLUSTER_SIZES}: {ls.resident_ctas(torch.device(dev).index or 0)}")
+    for shape in [LM_MAIN, LM_ZAMBA] + LM_LONG:
+        B, H, Hkv, D, T = shape
+        for density in (False, True):
+            log(f"plan landmark_score shape={shape} bf16 {'density' if density else 'logits'} mode: "
+                f"{ls.card_plan(dev, B, T, H, Hkv, D, 0, 2, density=density)}")
     for name in ("synapse_attention", "landmark_score"):
         log(f"ptxas {name}: {build.ptxas_info(name)}")
 
@@ -317,40 +428,64 @@ def check_kernels(dev):
     # the main side-decode shape again, with the last CTA's range of lane 0
     # and all of lane 1 invalid
     cases = [(shape, None) for shape in [SYN_MAIN, LM_MAIN, SYN_QWEN3] + TEST_SHAPES + FAMILY_SHAPES + LONG_SHAPES
-             + SYN_LONG500K] + [(SYN_MAIN, "invalid"), (SYN_LONG, "invalid"), (SYN_LONG500K[0], "invalid")]
+             + SYN_LONG500K] + [(SYN_MAIN, "invalid"), (SYN_LONG, "invalid"), (SYN_LONG500K[0], "invalid"),
+                                (LM_MAIN, "invalid"), (LM_ZAMBA, "invalid"), (LM_MAIN, "prefix")]
+    cases += [(shape, "landmark_score only") for shape in LM_LONG]
     for shape, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             t = dict(rtol=TOL[dtype], atol=TOL[dtype])
             q, k, v, valid, lm = inputs(shape, dtype)
-            if mask == "invalid":
-                B, H, Hkv, D, T = shape
+            B, H, Hkv, D, T = shape
+            if mask == "invalid":  # one CTA range of lane 0, and lane 1, with no valid key
                 a, b = sa.card_plan(dev, B, T, H, Hkv, D, q.element_size()).ranges[-1]
                 valid[0, a:b] = False
                 if B > 1:
                     valid[1] = False
-            out, mass = sa.synapse_attention(q, k, v, valid)
-            out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid)
-            torch.testing.assert_close(out.float(), out_r.float(), **t)
-            torch.testing.assert_close(mass, mass_r, **t)
-            torch.testing.assert_close(mass.sum(-1), torch.full_like(mass[:, 0], shape[1]), rtol=1e-3, atol=0)
-            repeat_bitwise(lambda: sa.synapse_attention(q, k, v, valid), (out, mass))
-            e_sa = max(max_err(out, out_r), max_err(mass, mass_r))
+            elif mask == "prefix":  # a river early in its cache: a fifth of the slots
+                valid = (torch.arange(T, device=dev) < T // 5).expand(B, T).contiguous()
+            e_sa = 0.0
+            if mask != "landmark_score only":
+                out, mass = sa.synapse_attention(q, k, v, valid)
+                out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid)
+                torch.testing.assert_close(out.float(), out_r.float(), **t)
+                torch.testing.assert_close(mass, mass_r, **t)
+                torch.testing.assert_close(mass.sum(-1), torch.full_like(mass[:, 0], shape[1]), rtol=1e-3, atol=0)
+                repeat_bitwise(lambda: sa.synapse_attention(q, k, v, valid), (out, mass))
+                e_sa = max(max_err(out, out_r), max_err(mass, mass_r))
             e_ls = 0.0
             for landmarks in (None, lm):
-                logits, dist = ls.landmark_score(q, k, landmarks)
-                logits_r, dist_r = ref.landmark_score_ref(q, k, landmarks)
-                torch.testing.assert_close(logits, logits_r, **t)
-                repeat_bitwise(lambda: ls.landmark_score(q, k, landmarks), (logits, dist))
-                e_ls = max(e_ls, max_err(logits, logits_r))
-                if landmarks is None:
-                    assert dist is None
-                else:
-                    torch.testing.assert_close(dist, dist_r, **t)
-                    e_ls = max(e_ls, max_err(dist, dist_r))
+                # logits mode, and density mode with the valid mask
+                for call, plain in ((lambda: ls.landmark_score(q, k, landmarks),
+                                     lambda: ref.landmark_score_ref(q, k, landmarks)),
+                                    (lambda: ls.landmark_density(q, k, landmarks, valid),
+                                     lambda: ref.landmark_density_ref(q, k, valid, landmarks))):
+                    got, dist = call()
+                    got_r, dist_r = plain()
+                    if got.dim() == 2:  # density [B, T]
+                        check_density(got, got_r, dtype, H)
+                    else:
+                        torch.testing.assert_close(got, got_r, **t)
+                    repeat_bitwise(call, (got, dist))
+                    e_ls = max(e_ls, max_err(got, got_r))
+                    if landmarks is None:
+                        assert dist is None
+                    else:
+                        torch.testing.assert_close(dist, dist_r, **t)
+                        e_ls = max(e_ls, max_err(dist, dist_r))
             log(f"check shape={shape}{' ' + mask if mask else ''} dtype={str(dtype)[6:]} "
                 f"synapse_attention max_abs_err={e_sa:.3g} landmark_score max_abs_err={e_ls:.3g}")
             worst["synapse_attention"] = max(worst["synapse_attention"], e_sa)
             worst["landmark_score"] = max(worst["landmark_score"], e_ls)
+    # landmark_score's density mode allocates its output and its plan's
+    # [B, head_groups, T] workspace, nothing of [B, H, T]
+    for shape in (LM_MAIN, LM_ZAMBA, LM_LONG[1]):
+        q, k, _, valid, _ = inputs(shape, torch.bfloat16)
+        extra, want = landmark_extra_bytes(q, k, valid)
+        log(f"landmark_score density mode shape={shape}: {extra} bytes allocated by a call, output and "
+            f"workspace {want}")
+        if extra > want:
+            raise AssertionError(f"landmark_score allocated {extra} bytes at {shape}, more than its output and "
+                                 f"workspace ({want})")
     # no score workspace: a call allocates its outputs and the mass per kv head, nothing more
     for shape in (SYN_LONG, SYN_LONG500K[1]):
         extra, want = synapse_extra_bytes(*inputs(shape, torch.bfloat16)[:4])
@@ -379,20 +514,13 @@ def check_kernels(dev):
         **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
         shape=list(SYN_MAIN), dtype="bfloat16",
     )
-    B, H, Hkv, D, T = LM_MAIN
-    q, k, _, _, _ = inputs(LM_MAIN, torch.bfloat16)
-    qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
     recs["landmark_score"] = dict(
         name="landmark_score", route="cuda",
         source="src/repro_torch/kernels/csrc/landmark_score.cu",
         replaces="src/repro/kernels/landmark_score.py:82",
         max_abs_err=worst["landmark_score"],
-        ms=time_ms(lambda: ls.landmark_score(q, k)),
         earlier_ms=EARLIER_MS["landmark_score"],
-        plain_ms=time_ms(lambda: ref.landmark_score_ref(q, k)),
-        library_ms=time_ms(lambda: torch.matmul(qg, kt)),  # the logits' product alone
-        **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
-        shape=list(LM_MAIN), dtype="bfloat16",
+        **landmark_row(dev, LM_MAIN, density=False, inputs=inputs),
     )
     def synapse_row(shape):
         B, H, Hkv, D, T = shape
@@ -414,15 +542,11 @@ def check_kernels(dev):
     for sub, shape in (("zamba2", SYN_ZAMBA), ("long_t", SYN_LONG), ("qwen3_8b", SYN_QWEN3),
                        ("long500k_qwen3_8b", SYN_LONG500K[0]), ("long500k_qwen1_5", SYN_LONG500K[1])):
         recs["synapse_attention"][sub] = synapse_row(shape)
-    B, H, Hkv, D, T = LM_ZAMBA
-    q, k, _, _, _ = inputs(LM_ZAMBA, torch.bfloat16)
-    qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
-    recs["landmark_score"]["zamba2"] = dict(
-        ms=time_ms(lambda: ls.landmark_score(q, k)),
-        plain_ms=time_ms(lambda: ref.landmark_score_ref(q, k)),
-        library_ms=time_ms(lambda: torch.matmul(qg, kt)),
-        **bound(q.numel() * 2 + k.numel() * 2 + B * H * T * 4, 2 * B * H * T * D),
-        shape=list(LM_ZAMBA), plan=str(ls.launch_plan(B, T, H, Hkv, D, 0, 2)))
+    # landmark_score at zamba2's spawn (logits mode), and the density mode at
+    # both spawns with every key valid
+    for sub, shape, density in (("zamba2", LM_ZAMBA, False), ("density", LM_MAIN, True),
+                                ("zamba2_density", LM_ZAMBA, True)):
+        recs["landmark_score"][sub] = landmark_row(dev, shape, density=density, inputs=inputs)
     for r in recs.values():
         log("kernel " + json.dumps(r))
     return recs
@@ -517,8 +641,28 @@ def check_launches(label: str, counts: dict, cfg, spawns: int, side_ticks: int):
                              f"({spawns} spawns, {side_ticks} side ticks)")
 
 
-def drive_main_path(card: str) -> dict:
-    """Phase 4: the engine at full width. Returns the launch counts."""
+def drive_main_path(card: str):
+    """Phase 4: the engine at full width. Returns the launch counts and the
+    valid mask of the first spawn's ``landmark_score`` sweep ([layers x
+    lanes, T] bool), which the density row 3d-spawn is timed at."""
+    from repro_torch.core import synapse as synapse_lib
+
+    spawn_valid = []
+    kernel_density = synapse_lib.kernel_density
+
+    def first_spawn(q, keys, valid):  # only the first spawn goes through here
+        spawn_valid.append(valid)
+        synapse_lib.kernel_density = kernel_density
+        return kernel_density(q, keys, valid)
+
+    synapse_lib.kernel_density = first_spawn
+    try:
+        return _drive_main_path(card), spawn_valid[0]
+    finally:
+        synapse_lib.kernel_density = kernel_density
+
+
+def _drive_main_path(card: str):
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
@@ -2310,7 +2454,14 @@ def main() -> int:
 
     recs = check_kernels(dev)
     check_reference(dev)
-    counts = drive_main_path(card)
+    counts, spawn_valid = drive_main_path(card)
+    # row 3d-spawn: the density mode at the mask of phase 4's first spawn
+    g = torch.Generator(device=dev).manual_seed(1)
+    recs["landmark_score"]["density_spawn"] = landmark_row(
+        dev, LM_MAIN, density=True, inputs=lambda shape, dtype: kernel_inputs(shape, dtype, g), valid=spawn_valid)
+    log(f"phase 4's first spawn: {int(spawn_valid[0].sum())} of {spawn_valid.shape[1]} slots valid in each of "
+        f"{spawn_valid.shape[0]} stacked layers x lanes; density row "
+        + json.dumps(recs["landmark_score"]["density_spawn"]))
     serving = drive_serving(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2345,8 +2496,10 @@ def main() -> int:
     for k in kernels:
         for key in ("shape", "dtype", "bytes", "flops", "earlier_ms"):
             k.pop(key)
-        for sub in ("zamba2", "long_t", "qwen3_8b", "long500k_qwen3_8b", "long500k_qwen1_5"):
-            for key in ("bytes", "flops", "plan"):
+        k.pop("plan", None)
+        for sub in ("zamba2", "long_t", "qwen3_8b", "long500k_qwen3_8b", "long500k_qwen1_5", "density",
+                    "zamba2_density", "density_spawn"):
+            for key in ("bytes", "flops", "plan", "shape", "dtype"):
                 k.get(sub, {}).pop(key, None)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -73,8 +73,10 @@ def attention_density(q, keys, valid):
 
 def kernel_density(q, keys, valid):
     """attention_density through the ``landmark_score`` kernel's
-    density-only sweep; the valid-masked softmax is a [B,H,T] reduction.
-    With a token axis live, the plain reduction, as in the reference."""
+    density-only sweep in density mode: on the card one launch computes the
+    valid-masked softmax over T and its sum over heads, and writes only
+    [B,T]. With a token axis live, the plain reduction, as in the
+    reference."""
     if sharded.get_shard_axis() is not None:
         return attention_density(q, keys, valid)
     density, _ = ops.landmark_score(q, keys, None, valid)

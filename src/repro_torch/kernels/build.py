@@ -100,6 +100,21 @@ def build_all(names) -> dict[str, str]:
     return logs
 
 
+_TICKETS: dict = {}
+
+
+def ticket_counters(device, n: int):
+    """The kernels' ticket counters for the current stream: zeros between
+    launches (the CTA that draws a counter's last ticket resets it), at
+    least ``n`` of them; one buffer per device and stream, so launches on
+    two streams never share one, and kernels on one stream run in turn."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
+
+
 class CudaKernel:
     """One hand-written kernel: its library, its C entry point and the count
     of its launches. ``launches`` rises by one where the wrapper launches the

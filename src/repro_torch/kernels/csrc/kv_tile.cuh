@@ -210,16 +210,3 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "DONE:\n"
         "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
-
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
-// device (`done` is the caller's flag per device), not on every launch.
-template <typename K>
-static cudaError_t allow_max_smem(K kern, bool (&done)[64]) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev < 64 && done[dev]) return cudaSuccess;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e == cudaSuccess && dev < 64) done[dev] = true;
-    return e;
-}

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import landmark_score as _ls
 from repro_torch.kernels import synapse_attention as _sa
 from repro_torch.kernels.build import build_all
-from repro_torch.kernels.ref import NEG_INF  # finite mask shared with the kernels and the sampler
+from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (finite mask shared with the kernels and the sampler)
 
 KERNELS = {"synapse_attention": _sa.KERNEL, "landmark_score": _ls.KERNEL}
 
@@ -74,11 +74,9 @@ def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None
 def landmark_score(q, keys, landmarks=None, valid=None):
     """Returns (density [B,T] — per-head softmax mass summed over heads,
     min_dist [B,T] or None when ``landmarks`` is None: the kernel skips its
-    coverage block for density-only sweeps). ``valid`` ([B,T] bool, optional)
-    restricts the softmax to valid keys."""
-    D = q.shape[-1]
-    logits, dist = _ls.landmark_score(q, keys, landmarks, scale=1.0 / (D ** 0.5))
-    if valid is not None:
-        logits = torch.where(valid[:, None, :], logits, torch.full_like(logits, NEG_INF))
-    density = torch.softmax(logits, dim=-1).sum(dim=1)  # paper: sum_h softmax_h
-    return density, dist
+    coverage block for density-only sweeps). ``valid`` ([B,T] bool,
+    optional) restricts the softmax to valid keys. On a CUDA tensor the
+    whole of it, the valid-masked softmax over T and the sum over heads
+    included, is one launch of the kernel in density mode, which writes no
+    [B,H,T] logits; on a CPU tensor the plain version."""
+    return _ls.landmark_density(q, keys, landmarks, valid, scale=1.0 / (q.shape[-1] ** 0.5))

@@ -61,6 +61,22 @@ def landmark_score_ref(q, keys, landmarks=None, scale: float | None = None):
     return logits, dist
 
 
+def landmark_density_ref(q, keys, valid=None, landmarks=None, scale: float | None = None):
+    """The density term of the landmark sweep, as the reference's wrapper
+    computes it after its Pallas call: the logits of
+    :func:`landmark_score_ref`, invalid keys (``valid`` [B,T] bool false;
+    None: every key valid) at the finite NEG_INF, a softmax over T per head,
+    summed over heads. An invalid key of a lane with a valid key gets 0; a
+    lane with no valid key gets H / T at every key.
+
+    Returns (density [B,T] f32, dist [B,T] f32 or None without landmarks).
+    """
+    logits, dist = landmark_score_ref(q, keys, landmarks, scale=scale)
+    if valid is not None:
+        logits = torch.where(valid[:, None, :], logits, torch.full_like(logits, NEG_INF))
+    return torch.softmax(logits, dim=-1).sum(dim=1), dist
+
+
 def mamba2_chunk_ref(x, a_log_decay, b, c, *, chunk: int):
     """Reference chunked-SSD core: the recurrence token by token.
 

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, align16
+from repro_torch.kernels.build import CudaKernel, align16, ticket_counters
 from repro_torch.kernels.ref import synapse_attention_ref
 
 MAX_SMEM = 232_448   # bytes of shared memory a block may use on sm_90
@@ -186,21 +186,6 @@ def card_plan(device, B: int, T: int, H: int, Hkv: int, D: int, elem_bytes: int,
     return launch_plan(B, T, H, Hkv, D, elem_bytes, resident_ctas(torch.device(device).index or 0), **kw)
 
 
-_TICKETS: dict = {}
-
-
-def _tickets(device, n: int):
-    """The kernel's ticket counters for the current stream: zeros between
-    launches (the last CTA of each (lane, range) resets its own), at least
-    ``n`` of them; one buffer per device and stream, so launches on two
-    streams never share one."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-    return t
-
-
 def _check(q, keys, values, valid):
     if not (q.is_cuda and keys.device == q.device and values.device == q.device and valid.device == q.device):
         raise ValueError("synapse_attention: all inputs must lie on one CUDA device")
@@ -251,7 +236,7 @@ def launch(plan: LaunchPlan, q, keys, values, valid, scale: float):
     out = torch.empty_like(q)
     mass = torch.empty((B, T), dtype=torch.float32, device=q.device)
     parts = torch.empty((B, Hkv, T), dtype=torch.float32, device=q.device) if plan.mass_parts else None
-    tickets = _tickets(q.device, B * plan.cluster) if plan.mass_parts else None
+    tickets = ticket_counters(q.device, B * plan.cluster) if plan.mass_parts else None
     KERNEL.launch(
         q.data_ptr(), keys.data_ptr(), values.data_ptr(), valid.data_ptr(), out.data_ptr(), mass.data_ptr(),
         None if parts is None else parts.data_ptr(), None if tickets is None else tickets.data_ptr(),

@@ -78,8 +78,6 @@ BLOB_SUFFIX = ".synapse.blob"
 MANIFEST_NAME = "MANIFEST.pkl"
 QUARANTINE_DIR = "quarantine"
 MANIFEST_VERSION = 1
-COLD_LEVEL = 3  # zstd/zlib level of a cold blob
-WAKE_BACKOFF_CAP_S = 1.0  # longest sleep between two retried cold reads
 
 
 class SnapshotLostError(KeyError):
@@ -286,14 +284,18 @@ class SynapseStore:
         *,
         warm_capacity_bytes: Optional[int] = None,
         cold_dir: Optional[str] = None,
+        cold_level: int = 3,
         wake_retries: int = 3,
         wake_backoff_s: float = 0.02,
+        wake_backoff_cap_s: float = 1.0,
         faults=None,
     ):
         self.warm_capacity_bytes = warm_capacity_bytes
         self.cold_dir = cold_dir
+        self.cold_level = cold_level  # zstd/zlib level of a cold blob
         self.wake_retries = wake_retries
         self.wake_backoff_s = wake_backoff_s
+        self.wake_backoff_cap_s = wake_backoff_cap_s  # longest sleep between two retried cold reads
         self.faults = faults  # FaultInjector | None — test/chaos hook
         self._lock = threading.RLock()
         # key -> tree of CPU tensors; insertion order doubles as LRU order
@@ -428,7 +430,7 @@ class SynapseStore:
             {"key": key, "skeleton": skel, "meta": meta, "raw": raw},
             protocol=pickle.HIGHEST_PROTOCOL,
         )
-        blob = ckpt_io.dumps_framed(host, level=COLD_LEVEL, meta=frame_meta)
+        blob = ckpt_io.dumps_framed(host, level=self.cold_level, meta=frame_meta)
         if self.faults is not None:
             blob = self.faults.on_cold_write(key, blob)  # torn-write injection
         os.makedirs(self.cold_dir, exist_ok=True)
@@ -488,7 +490,8 @@ class SynapseStore:
             # corrupted file must not block recovery: blobs self-describe
             return {"entries": {}, "corrupt": True}
 
-    def recover(self, cold_dir: Optional[str] = None) -> dict:
+    def recover(self, cold_dir: Optional[str] = None, *,
+                verify_payloads: bool = False) -> dict:
         """Rebuild the cold index (skeletons included) from disk after a
         process restart. Manifest entries are adopted first; blob files the
         manifest does not know about (a crash between the blob write and
@@ -496,9 +499,10 @@ class SynapseStore:
         Unreadable/corrupt blobs are quarantined, manifest entries whose
         file vanished are counted lost — recovery itself never raises on
         bad data. Blobs another package wrote are listed as ``foreign`` and
-        left where they are. Payload digests are checked when a blob is
-        read back (:meth:`get_host`), not here: recovery reads only each
-        blob's header and metadata."""
+        left where they are. By default recovery reads only each blob's
+        header and metadata, and payload digests are checked when a blob is
+        read back (:meth:`get_host`); ``verify_payloads=True`` additionally
+        checks every payload digest up front (reads every blob fully)."""
         if cold_dir is not None:
             self.cold_dir = cold_dir
         report = {
@@ -519,7 +523,7 @@ class SynapseStore:
                 with self._lock:
                     self.stats["lost"] += 1
                 continue
-            self._adopt_blob(path, report)
+            self._adopt_blob(path, report, verify=verify_payloads)
         # orphan blobs: written, crashed before their manifest update
         try:
             listing = sorted(os.listdir(self.cold_dir))
@@ -528,7 +532,7 @@ class SynapseStore:
         for fname in listing:
             if not fname.endswith(BLOB_SUFFIX) or fname in seen_files:
                 continue
-            adopted = self._adopt_blob(os.path.join(self.cold_dir, fname), report)
+            adopted = self._adopt_blob(os.path.join(self.cold_dir, fname), report, verify=verify_payloads)
             if adopted is not None:
                 report["orphans_adopted"].append(adopted)
         with self._lock:
@@ -536,14 +540,18 @@ class SynapseStore:
             self._write_manifest_locked()
         return report
 
-    def _adopt_blob(self, path: str, report: dict) -> Optional[str]:
+    def _adopt_blob(self, path: str, report: dict, *, verify: bool = False) -> Optional[str]:
         """Validate one blob file and (re)index it; quarantine on any
-        integrity failure. Returns the adopted key, or None."""
+        integrity failure (with ``verify``, a payload whose digest is wrong
+        too). Returns the adopted key, or None."""
         try:
             meta_bytes = ckpt_io.read_frame_meta(path)
             info = _loads_own(meta_bytes)
             key = info["key"]
             skel, meta, raw = info["skeleton"], info.get("meta"), info["raw"]
+            if verify:
+                with open(path, "rb") as f:
+                    ckpt_io.unframe(f.read(), verify=True)
         except FileNotFoundError:
             report["lost"].append(os.path.basename(path))
             with self._lock:
@@ -598,11 +606,13 @@ class SynapseStore:
             data = self.faults.on_cold_read(key, data)  # may raise / mutate
         return data
 
-    def get_host(self, key: str):
+    def get_host(self, key: str, *, verify: bool = True):
         """Synchronously read a snapshot back as a tree of CPU tensors (no tier
         mutation — the entry stays parked until `drop()`).
 
-        Every cold read verifies the blob's frame checksum. A corrupt or
+        Every cold read verifies the blob's frame checksum (``verify=False``
+        skips the payload digest: a benchmark's overhead-measurement arm
+        only). A corrupt or
         truncated blob is quarantined and surfaces as
         :class:`SnapshotLostError`; a concurrent ``drop()``/re-``put()``
         that unlinks the file mid-read resolves to the CURRENT state of the
@@ -630,7 +640,7 @@ class SynapseStore:
                     raise KeyError(f"no hibernated snapshot for {key!r}")
                 entry = cur  # re-demoted: fall through and decode fresh index
         try:
-            tree = ckpt_io.loads_framed(blob, entry.skeleton)
+            tree = ckpt_io.loads_framed(blob, entry.skeleton, verify=verify)
         except ckpt_io.CorruptBlobError as e:
             with self._lock:
                 if self._cold.get(key) is entry:
@@ -775,7 +785,7 @@ class SynapseStore:
                     raise
                 with self._lock:
                     self.stats["wake_retries"] += 1
-                delay = min(backoff * (2 ** (attempt - 1)), WAKE_BACKOFF_CAP_S)
+                delay = min(backoff * (2 ** (attempt - 1)), self.wake_backoff_cap_s)
                 if ticket.deadline is not None:
                     rem = ticket.remaining()
                     if rem is not None:

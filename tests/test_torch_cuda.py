@@ -104,7 +104,122 @@ def test_landmark_score_kernel_matches_plain(card, shape, dtype, with_landmarks)
         torch.testing.assert_close(dist, dist_r, **_tol(dtype))
     dens, _ = ops.landmark_score(q, k, None, valid)
     dens_r = torch.softmax(torch.where(valid[:, None], logits_r, torch.full_like(logits_r, ref.NEG_INF)), -1).sum(1)
-    torch.testing.assert_close(dens, dens_r, **_tol(dtype))
+    _smoke().check_density(dens, dens_r, dtype, shape[1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_landmarks", [False, True])
+def test_landmark_density_kernel_matches_plain(card, shape, dtype, with_landmarks):
+    """Density mode, one launch: a mask that is not a prefix (about 70 %
+    valid) and, where there are two lanes, lane 1 with no valid key (H / T
+    at every key); invalid keys of lane 0 exactly 0; bitwise on repeat."""
+    B, H, Hkv, D, T = shape
+    q, k, _, valid = _inputs(shape, dtype, card, seed=5)
+    lm = torch.randn((B, 7, D), device=card).to(dtype) if with_landmarks else None
+    if B > 1:
+        valid[1] = False
+    before = ls.KERNEL.launches
+    dens, dist = ops.landmark_score(q, k, lm, valid)
+    torch.cuda.synchronize()
+    assert ls.KERNEL.launches == before + 1
+    dens_r, dist_r = ref.landmark_density_ref(q, k, valid, lm)
+    _smoke().check_density(dens, dens_r, dtype, H)
+    if lm is None:
+        assert dist is None
+    else:
+        torch.testing.assert_close(dist, dist_r, **_tol(dtype))
+    if (~valid[0]).any():
+        assert float(dens[0][~valid[0]].abs().max()) == 0.0
+    if B > 1:
+        torch.testing.assert_close(dens[1], torch.full_like(dens[1], H / T), rtol=1e-5, atol=1e-6)
+    again = ops.landmark_score(q, k, lm, valid)
+    assert torch.equal(again[0], dens) and (dist is None or torch.equal(again[1], dist))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mask", ["prefix", "none", "one_key"])
+def test_landmark_density_masks_on_card(card, dtype, mask):
+    """The spawn's own masks at its shape: a prefix of a fifth of the slots
+    (a river early in its cache: most tiles hold no valid key and are not
+    loaded), no mask (every key valid), one valid key a lane."""
+    shape = (24, 14, 2, 64, 1024)
+    B, H, Hkv, D, T = shape
+    q, k, _, valid = _inputs(shape, dtype, card, seed=6)
+    slots = torch.arange(T, device=card)[None, :]
+    valid = {"prefix": slots < 205, "none": None, "one_key": slots == 700}[mask]
+    if valid is not None:
+        valid = valid.expand(B, T).contiguous()
+    dens, _ = ops.landmark_score(q, k, None, valid)
+    dens_r, _ = ref.landmark_density_ref(q, k, valid)
+    _smoke().check_density(dens, dens_r, dtype, H)
+    if valid is not None:
+        assert float(dens[~valid].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2, 64, 33), (2, 14, 2, 64, 1024), (2, 32, 32, 64, 1000),
+                                   (2, 32, 8, 128, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_landmark_score_keeps_lanes_apart(card, shape, dtype):
+    """NaN and Inf keys in lane 1 leave lane 0 of both modes equal to the
+    plain version on lane 0 alone: a lane's ragged last tile reads zeros
+    past its T, never the next lane's rows."""
+    q, k, _, valid = _inputs(shape, dtype, card, seed=7)
+    k[1, ::2], k[1, 1::2] = float("nan"), float("inf")
+    lm = torch.randn((shape[0], 7, shape[3]), device=card).to(dtype)
+    dens, dist = ops.landmark_score(q, k, lm, valid)
+    logits, _ = ls.landmark_score(q, k)
+    dens_r, dist_r = ref.landmark_density_ref(q[:1], k[:1], valid[:1], lm[:1])
+    _smoke().check_density(dens[:1], dens_r, dtype, shape[1])
+    torch.testing.assert_close(dist[:1], dist_r, **_tol(dtype))
+    torch.testing.assert_close(logits[:1], ref.landmark_score_ref(q[:1], k[:1])[0], **_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 8, 128, 32768), (1, 64, 8, 128, 32768), (1, 32, 8, 128, 5248),
+                                   (1, 32, 1, 64, 32768)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_landmark_density_long_key_sets(card, shape, dtype):
+    """Long key sets in density mode, one lane: qwen3-8b's and
+    qwen1.5-110b's heads at T = 32,768 and 5248 split into a kv-head group
+    a kv head (their parts summed through the workspace) whose range's
+    logits stay in shared memory; 32 heads of one kv head at T = 32,768,
+    whose logits do not, sweep the keys twice. Refused at none."""
+    B, H, Hkv, D, T = shape
+    q, k, _, valid = _inputs(shape, dtype, card, seed=8)
+    plan = ls.card_plan(card, B, T, H, Hkv, D, 0, q.element_size(), density=True)
+    assert plan.head_groups == Hkv and plan.sweeps == (2 if Hkv == 1 else 1)
+    dens, _ = ops.landmark_score(q, k, None, valid)
+    dens_r, _ = ref.landmark_density_ref(q, k, valid)
+    _smoke().check_density(dens, dens_r, dtype, H)
+    assert torch.equal(ops.landmark_score(q, k, None, valid)[0], dens)
+
+
+@pytest.mark.parametrize("with_landmarks", [False, True])
+def test_landmark_density_is_one_launch_and_allocates_its_outputs(card, with_landmarks):
+    """On the card ``ops.landmark_score`` is one kernel on the device (the
+    profiler's CUDA events) and allocates its outputs alone: density [B, T]
+    and, with landmarks, dist [B, T], nothing of shape [B, H, T]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (24, 14, 2, 64, 1024)
+    B, H, Hkv, D, T = shape
+    q, k, _, valid = _inputs(shape, torch.bfloat16, card, seed=9)
+    lm = k[:, :7, 0].contiguous() if with_landmarks else None
+    ops.landmark_score(q, k, lm, valid)  # built, planned and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.landmark_score(q, k, lm, valid)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in events) == 1 and "landmark_score" in events[0].key
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.landmark_score(q, k, lm, valid)
+    torch.cuda.synchronize()
+    block = lambda n: -(-n // 512) * 512  # the caching allocator's rounding
+    want = block(B * T * 4) * (2 if with_landmarks else 1)
+    assert torch.cuda.max_memory_allocated() - base == want
+    del out
 
 
 def test_masked_keys_get_zero_mass_on_card(card):

@@ -1,13 +1,16 @@
-"""The CUDA kernels' launch plans and the kernel's split softmax, on the
+"""The CUDA kernels' launch plans and the kernels' split softmaxes, on the
 CPU.
 
 ``landmark_score.launch_plan`` and ``synapse_attention.launch_plan`` are the
 pure-Python geometry that the wrappers hand to the card: these tests hold
-the same numbers the kernels launch with. The split-softmax test runs the
-``synapse_attention`` kernel's arithmetic in torch over the plan's CTAs
-(per lane, kv head and key range: max, sum and partial p.V; the ranges
-combined in range order; the mass summed over kv heads in order) against
-the plain version.
+the same numbers the kernels launch with. The split-softmax tests run each
+kernel's arithmetic in torch over the plan's CTAs against the plain
+version: ``synapse_attention``'s per (lane, kv head, key range) max, sum
+and partial p.V, the ranges combined in range order, the mass summed over
+kv heads in order; ``landmark_score``'s density mode per (lane, key range)
+running max and sum per head over its tiles (tiles with no valid key not
+loaded), the ranges combined in range order, the density per key summed
+over heads.
 """
 import sys
 from pathlib import Path
@@ -114,32 +117,105 @@ def test_synapse_plan_at_the_smoke_shapes(shape):
         _check_synapse_plan(sa_plan(B, T, H, Hkv, D, e), B, H, Hkv, D, T, e)
 
 
+def ls_plan(B, T, H, Hkv, D, kc, e, **kw):
+    return ls.launch_plan(B, T, H, Hkv, D, kc, e, H100, **kw)
+
+
+def _check_landmark_plan(p, B, H, Hkv, D, T, kc, e, density):
+    """What every landmark_score plan holds: the ranges partition T, C is
+    the most ranges (a power of two, at most 16 in density mode and 64 in
+    logits mode, at least 32 keys each where T allows) whose grid the card
+    holds in one wave (clusters of C in density mode, single CTAs in logits
+    mode); in density mode without landmarks, the most kv-head groups (a
+    power of two dividing Hkv) that keep it one wave, one group otherwise,
+    and a [B, groups, T] workspace only with more than one; a tile is a multiple of 16
+    keys, at most 256 and at most the range rounded up to 16; the stages fit
+    shared memory; the range's logits stay in shared memory (``keep``) only
+    in density mode, and only where they fit, else a second sweep."""
+    C, HG, cap = p.ranges_per_lane, p.head_groups, ls.MAX_CLUSTER if density else ls.MAX_RANGES
+    wave = lambda c: RES[c if density else 1]
+    assert p.density == density and C in (1, 2, 4, 8, 16, 32, 64) and C <= cap and p.grid == (C, HG, B)
+    assert p.cluster == (C if density else 1) and p.ctas == B * C * HG
+    assert C == 1 or (T // ls.MIN_KEYS >= C and B * C <= wave(C))
+    assert C == cap or T // ls.MIN_KEYS < 2 * C or B * 2 * C > wave(2 * C)
+    assert Hkv % HG == 0 and p.parts == (HG > 1)
+    if density and not kc:
+        assert HG == 1 or B * C * HG <= wave(C)
+        assert Hkv % (2 * HG) or B * C * 2 * HG > wave(C)
+    else:
+        assert HG == 1
+    hg = Hkv // HG
+    H = hg * (H // Hkv)  # the query heads of one CTA
+    assert len(p.ranges) == C
+    _assert_partition(p.ranges, T)
+    assert p.n_max == max(b - a for a, b in p.ranges) == -(-T // C)
+    ck = p.chunk_keys
+    assert ck % 16 == 0 and 16 <= ck <= 256 and ck <= -(-p.n_max // 16) * 16
+    assert p.n_chunks * ck >= p.n_max > (p.n_chunks - 1) * ck
+    assert 1 <= p.stages <= min(ls.MAX_STAGES, p.n_chunks * p.sweeps)
+    assert p.stage_bytes == ck * hg * (128 * -(-D // 64) if e == 2 else D * 4)
+    assert p.stages * p.stage_bytes < p.smem <= SMEM_LIMIT
+    assert not p.keep or density
+    if p.keep:  # the range's [H, n] f32 logits beside the ring
+        assert H * p.n_max * 4 + p.stages * p.stage_bytes < p.smem
+    elif density:  # they would not fit beside one tile even at the smaller budget, in place of a tile's logits
+        base = p.smem - p.stages * p.stage_bytes
+        assert p.sweeps == 2 and base - H * (ck + 36) * 4 + H * p.n_max * 4 + p.stage_bytes > ls.TWO_PER_SM
+
+
 @pytest.mark.parametrize("T", T_VALUES)
 def test_landmark_score_plan(T):
     for B, H, Hkv, D in SHAPES + FAMILY_SHAPES:
         for e in ELEM_BYTES:
             for kc in (0, 7):
-                p = ls.launch_plan(B, T, H, Hkv, D, kc, e)
-                assert p.block_t in (64, 32, 16, 8, 4, 2, 1)
-                assert p.grid == (-(-T // p.block_t), B) and len(p.ranges) == p.grid[0]
-                _assert_partition(p.ranges, T)
-                assert all(b - a <= p.block_t for a, b in p.ranges)
-                assert p.smem <= SMEM_LIMIT
-                G = H // Hkv
-                assert p.rows in (1, 2, 4, 7, 8) and p.rows >= min(G, 8) and (p.rows == 8 or p.rows - G < 3)
-                assert p.threads == min(256, -(-(p.block_t * Hkv * -(-G // p.rows)) // 32) * 32)
-                # the slab of the next larger tile would not have fit
-                if p.block_t < 64:
-                    assert p.smem + p.block_t * Hkv * D * e > SMEM_LIMIT
+                for density in (False, True):
+                    p = ls_plan(B, T, H, Hkv, D, kc, e, density=density)
+                    _check_landmark_plan(p, B, H, Hkv, D, T, kc, e, density)
+
+
+# the density-mode plan never refuses a T: Qwen2.5-0.5B's spawn, zamba2's,
+# qwen3-8b's and qwen1.5-110b's heads, up to the reference's long key sets
+DENSITY_SHAPES = [(24, 14, 2, 64), (6, 32, 32, 64), (1, 32, 8, 128), (1, 64, 8, 128)]
+
+
+def test_landmark_density_plan_sweeps_twice_where_logits_do_not_fit():
+    """32 query heads of one kv head at T = 32,768: a range of 2048 keys
+    holds 256 KB of f32 logits, more than shared memory; the plan sweeps
+    the keys twice. With 8 kv heads, a group a kv head keeps them."""
+    p = ls_plan(1, 32768, 32, 1, 64, 0, 2, density=True)
+    assert p.head_groups == 1 and not p.keep and p.sweeps == 2 and p.smem <= SMEM_LIMIT
+    p = ls_plan(1, 32768, 64, 8, 128, 0, 2, density=True)
+    assert p.head_groups == 8 and p.keep and p.sweeps == 1
+
+
+@pytest.mark.parametrize("T", [1, 33, 1024, 5248, 32768])
+@pytest.mark.parametrize("shape", DENSITY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_landmark_density_plan_takes_every_T(shape, T):
+    B, H, Hkv, D = shape
+    for e in ELEM_BYTES:
+        p = ls_plan(B, T, H, Hkv, D, 0, e, density=True)
+        _check_landmark_plan(p, B, H, Hkv, D, T, 0, e, True)
+        assert p.keep or p.sweeps == 2
 
 
 def test_plans_at_the_main_path_shapes():
-    # spawn: 24 layers x 1 lane, bf16: 64-key tiles, 16 x 24 = 384 blocks of
-    # 64 keys x 2 kv heads x 1 group of 7 query rows
-    p = ls.launch_plan(24, 1024, 14, 2, 64, 0, 2)
-    assert p.block_t == 64 and p.grid == (16, 24) and p.threads == 128 and p.rows == 7
-    # a 64-key f32 slab of Hkv = 8, D = 128 needs 256 KB: 32 keys fit
-    assert ls.launch_plan(1, 4096, 32, 8, 128, 0, 4).block_t == 32
+    # spawn: 24 layers x 1 lane, bf16: 8 ranges of 128 keys a lane (192 CTAs,
+    # two an SM on part of the card), each range one 32 KB tile; in density
+    # mode a lane's 8 CTAs are a cluster and each keeps its 14 x 128 logits
+    # in shared memory
+    for density in (False, True):
+        p = ls_plan(24, 1024, 14, 2, 64, 0, 2, density=density)
+        assert p.ranges_per_lane == 8 and p.grid == (8, 1, 24) and p.chunk_keys == 128 and p.stages == 1
+        assert p.cluster == (8 if density else 1) and p.keep == density and p.smem <= ls.TWO_PER_SM
+        assert p.head_groups == 1  # two groups would take 384 CTAs, more than one wave
+    # one lane at T = 4096, Hkv = 8, D = 128, f32: density mode takes 16
+    # ranges of 256 keys (the cluster) and a group a kv head (128 CTAs), a
+    # tile 64 keys of one kv head (32 KB); logits mode 64 ranges, all kv heads
+    # of a 16-key tile (64 KB)
+    p = ls_plan(1, 4096, 32, 8, 128, 0, 4, density=True)
+    assert p.ranges_per_lane == 16 and p.head_groups == 8 and p.parts and p.chunk_keys == 64 and p.keep
+    p = ls_plan(1, 4096, 32, 8, 128, 0, 4)
+    assert p.ranges_per_lane == 64 and p.head_groups == 1 and p.chunk_keys == 16 and p.stage_bytes == 65536
     # side decode: 8 lanes x 2 kv heads, T = 144: 4 ranges of 36 keys (32 at
     # least); the 2 kv heads share a cluster of 8, which sums the mass over
     # them in shared memory: no workspace
@@ -154,22 +230,25 @@ def test_plans_at_the_main_path_shapes():
 
 def test_plans_at_the_family_shapes():
     # zamba2's spawn: 6 invocations x 1 parent lane, T = 1024, H = Hkv = 32,
-    # D = 64: a key row of 32 kv heads is 4 KB in bf16, so a tile is 32 keys
-    # (16 in f32), one bulk copy shorter than the 32-key part; G = 1, so a
-    # thread takes one row and the block loops over 1024 (key, kv head)
-    # units with 256 threads
-    p = ls.launch_plan(6, 1024, 32, 32, 64, 0, 2)
-    assert p.block_t == 32 and p.rows == 1 and p.threads == 256 and p.grid == (32, 6)
-    assert ls.launch_plan(6, 1024, 32, 32, 64, 0, 4).block_t == 16
+    # D = 64. Density mode: 16 ranges of 64 keys a lane (the cluster) and two
+    # groups of 16 kv heads, 192 CTAs; a 16-key tile of 16 kv heads is 32
+    # KB, three in flight. Logits mode: 32 ranges, all 32 kv heads, 192 CTAs,
+    # a 64 KB tile each (f32: 128 KB)
+    p = ls_plan(6, 1024, 32, 32, 64, 0, 2, density=True)
+    assert p.ranges_per_lane == 16 and p.head_groups == 2 and p.grid == (16, 2, 6) and p.chunk_keys == 16
+    assert p.stage_bytes == 32768 and p.stages == 3 and p.n_chunks == 4 and p.keep
+    p = ls_plan(6, 1024, 32, 32, 64, 0, 2)
+    assert p.ranges_per_lane == 32 and p.grid == (32, 1, 6) and p.stages == 1 and p.smem <= ls.TWO_PER_SM
+    assert ls_plan(6, 1024, 32, 32, 64, 0, 4, density=True).stages == 1
     # zamba2's side decode: T = K + W + J = 136; 8 lanes x 32 kv heads are
     # 256 CTAs, all the card holds: one range each, G = 1 (one 8-row group
     # of which one row is real), p.V over 4 tiles of 16 columns in 2 slices
     p = sa_plan(8, 136, 32, 32, 64, 2)
     assert p.cluster == 1 and p.grid == (1, 32, 8) and p.slices == 2 and p.n_chunks == 1
     assert sa_plan(8, 136, 32, 32, 64, 4).n_chunks == 2
-    # qwen3-moe: G = 8, 16-byte chunks of a 256-byte bf16 row: 8 rows a pass
-    p = ls.launch_plan(48, 1024, 32, 4, 128, 0, 2)
-    assert p.rows == 8 and p.block_t == 64
+    # qwen3-moe's spawn: 48 lanes, 4 ranges of 256 keys each (192 CTAs)
+    p = ls_plan(48, 1024, 32, 4, 128, 0, 2, density=True)
+    assert p.ranges_per_lane == 4 and p.chunk_keys == 32 and p.keep
     # qwen3-moe's side decode: 8 x 4 kv heads, ranges of 34 keys; 8 tiles of
     # 16 columns of p.V, one a warp
     p = sa_plan(8, 136, 32, 4, 128, 2)
@@ -200,8 +279,8 @@ def test_synapse_plan_follows_the_cards_residency():
 
 @pytest.mark.parametrize("plan", [
     lambda D, e: sa_plan(1, 8, 4, 2, D, e),
-    lambda D, e: ls.launch_plan(1, 8, 4, 2, D, 0, e),
-    lambda D, e: ls.launch_plan(1, 8, 4, 2, D, 3, e),
+    lambda D, e: ls_plan(1, 8, 4, 2, D, 0, e),
+    lambda D, e: ls_plan(1, 8, 4, 2, D, 3, e, density=True),
 ], ids=["synapse_attention", "landmark_score", "landmark_score_coverage"])
 @pytest.mark.parametrize("D,e", [(6, 4), (4, 2), (12, 2)])
 def test_plans_refuse_misaligned_rows(plan, D, e):
@@ -223,7 +302,7 @@ def test_synapse_plan_refuses_what_the_kernel_cannot_take(args, reason):
 
 def test_landmark_plan_refuses_query_rows_that_do_not_fit():
     with pytest.raises(ValueError, match="shared-memory limit"):
-        ls.launch_plan(1, 8, 1024, 2, 64, 0, 4)  # 1024 query rows alone
+        ls_plan(1, 8, 1024, 2, 64, 0, 4)  # 1024 query rows alone
 
 
 # (B, H, Hkv, D, T): the two largest head shapes of the families at long
@@ -308,3 +387,92 @@ def test_split_softmax_matches_plain(shape, mask):
         assert float(mass[0, a:b].abs().max()) == 0.0
     if mask == "invalid_lane":
         torch.testing.assert_close(mass[0], torch.full((T,), H / T), rtol=1e-6, atol=1e-7)
+
+
+def _split_density(q, k, valid, plan, scale, skip=True):
+    """landmark_score's density mode in torch over the plan's CTAs: per
+    (lane, key range) a running max m and sum s per head, tile by tile, the
+    keys of a tile with no valid key (not loaded where ``skip``) counted at
+    NEG_INF before the first tile; per lane M = max_r m_r and S = sum_r
+    s_r e^(m_r - M) in range order; per key sum_h e^(l - M_h) / S_h, an
+    invalid key's l at NEG_INF, over each kv-head group's heads and then
+    over the plan's groups in order."""
+    B, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    logits = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, Hkv, G, D), k).reshape(B, H, T) * scale
+    logits = torch.where(valid[:, None], logits, torch.full_like(logits, ref.NEG_INF))
+    ck = plan.chunk_keys
+    density = torch.empty((B, T))
+    for b in range(B):
+        stats = []
+        for a, e in plan.ranges:
+            tiles = [(t0, min(e, t0 + ck)) for t0 in range(a, e, ck)]
+            live = [(t0, t1) for t0, t1 in tiles if not skip or bool(valid[b, t0:t1].any())]
+            m = torch.full((H,), ref.NEG_INF)
+            s = torch.full((H,), float(sum(t1 - t0 for t0, t1 in tiles) - sum(t1 - t0 for t0, t1 in live)))
+            for t0, t1 in live:
+                tile = logits[b, :, t0:t1]
+                m_new = torch.maximum(m, tile.amax(-1))
+                s = s * torch.exp(m - m_new) + torch.exp(tile - m_new[:, None]).sum(-1)
+                m = m_new
+            stats.append((m, s))
+        M = stats[0][0]
+        for m, _ in stats[1:]:
+            M = torch.maximum(M, m)
+        S = torch.zeros(H)
+        for m, s in stats:
+            S = S + s * torch.exp(m - M)
+        # each kv-head group's heads, then the groups' parts in group order
+        p = (torch.exp(logits[b] - M[:, None]) / S[:, None]).reshape(plan.head_groups, -1, T)
+        density[b] = p.sum(1).sum(0)
+    return density
+
+
+# (B, H, Hkv, D, T): Qwen2.5-0.5B's and zamba2's spawns (two lanes), qwen3-8b's
+# heads at long_500k's key set, a ragged G = 3 group, and qwen1.5-110b's heads
+# at T = 32,768 (the second sweep)
+COMBINE_SHAPES = [(2, 14, 2, 64, 1024), (2, 32, 32, 64, 1024), (1, 32, 8, 128, 5248), (2, 9, 3, 64, 321),
+                  (1, 64, 8, 128, 32768)]
+
+
+def density_case(shape, mask, seed):
+    """q, keys (f32, from numpy) and a mask: "prefix" (a river's first
+    slots), "random" (about 70 % valid, not a prefix), "invalid_range" (a
+    random mask with lane 0's last range of the bf16 density plan all
+    invalid), "invalid_lane" (lane 0 with no valid key)."""
+    B, H, Hkv, D, T = shape
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, T, Hkv, D), dtype=np.float32))
+    if mask == "prefix":
+        valid = torch.arange(T)[None, :] < torch.tensor([max(1, T // 5), T // 2 + 3][:B])[:, None]
+    else:
+        valid = torch.from_numpy(rng.random((B, T)) < 0.7)
+        valid[:, 0] = True
+    if mask == "invalid_range":
+        a, b = ls_plan(B, T, H, Hkv, D, 0, 2, density=True).ranges[-1]
+        valid[0, a:b] = False
+    elif mask == "invalid_lane":
+        valid[0] = False
+    return q, k, valid
+
+
+@pytest.mark.parametrize("mask", ["prefix", "random", "invalid_range", "invalid_lane"])
+@pytest.mark.parametrize("shape", COMBINE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_landmark_density_combine_matches_plain(shape, mask):
+    B, H, Hkv, D, T = shape
+    q, k, valid = density_case(shape, mask, sum(shape))
+    plan = ls_plan(B, T, H, Hkv, D, 0, 2, density=True)
+    assert len(plan.ranges) > 1
+    scale = 1.0 / D ** 0.5
+    got = _split_density(q, k, valid, plan, scale)
+    want, _ = ref.landmark_density_ref(q, k, valid, scale=scale)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if mask == "invalid_range":
+        a, b = plan.ranges[-1]
+        assert float(got[0, a:b].abs().max()) == 0.0
+    if mask == "invalid_lane":
+        torch.testing.assert_close(got[0], torch.full((T,), H / T), rtol=1e-6, atol=1e-7)
+    else:
+        assert float(got[~valid].abs().max()) == 0.0

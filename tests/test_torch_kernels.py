@@ -15,6 +15,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import synapse as tsynapse
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from test_torch_kernel_plans import COMBINE_SHAPES, density_case  # the combine test's cases
 
 SHAPES = [
     # B, H, Hkv, D, T
@@ -114,6 +116,29 @@ def test_landmark_score_matches_jax_ops(shape, with_landmarks):
         assert dist is None and dist_j is None
     else:
         np.testing.assert_allclose(dist.numpy(), np.asarray(dist_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def _one_torch_thread():
+    """Small CPU ops run fastest on one thread under the parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("mask", ["prefix", "random", "invalid_range", "invalid_lane"])
+@pytest.mark.parametrize("shape", COMBINE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_landmark_density_ref_matches_jax_ops(_one_torch_thread, shape, mask):
+    """The density mode's plain version against the JAX package's wrapper
+    (the Pallas kernel in interpret mode, then its where + softmax + head
+    sum), on the cases the combine test emulates the kernel on."""
+    q, k, valid = density_case(shape, mask, sum(shape))
+    dens, dist = tref.landmark_density_ref(q, k, valid)
+    dens_j, dist_j = jops.landmark_score(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), None,
+                                         jnp.asarray(valid.numpy()), interpret=True)
+    assert dist is None and dist_j is None
+    np.testing.assert_allclose(dens.numpy(), np.asarray(dens_j), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:4])

@@ -450,3 +450,119 @@ def test_recover_leaves_the_reference_blobs_alone(tmp_path, monkeypatch):
     assert not report["quarantined"] and (tmp_path / ref_file).exists()
     assert any(m.startswith("jax") for m in found)  # refused, never loaded
     _bitwise(_snap(1), fresh.get_host("port"))
+
+
+# ---------------------------------------------------------------------------
+# the reference's knobs: cold_level, wake_backoff_cap_s,
+# recover(verify_payloads=), get_host(verify=) — each held against the
+# reference's store on the same snapshot and the same fault
+# ---------------------------------------------------------------------------
+from repro.checkpoint import io as jio  # noqa: E402
+from repro.memory import FaultInjector as JaxFaults  # noqa: E402
+from repro.memory import store as jstore  # noqa: E402
+
+
+def _np_snap(seed):
+    return {k: v.numpy() for k, v in _snap(seed).items()}
+
+
+@pytest.mark.parametrize("verify_payloads", [False, True])
+def test_recover_verify_payloads_matches_the_reference(tmp_path, verify_payloads):
+    """A payload byte flipped behind an intact frame header and metadata:
+    recovery adopts the blob by default (it reads headers only) and
+    quarantines it with ``verify_payloads=True``, as the reference does; the
+    clean blob beside it recovers either way."""
+    reports = []
+    for cls, faults, snap, sub in ((SynapseStore, FaultInjector(), _snap(1), "port"),
+                                   (JaxStore, JaxFaults(), _np_snap(1), "ref")):
+        store = cls(warm_capacity_bytes=1, cold_dir=str(tmp_path / sub), faults=faults.flip_write("bad"))
+        store.put("bad", snap, meta={"kind": "main"})
+        store.put("good", snap, meta={"kind": "main"})
+        del store
+        fresh = cls(warm_capacity_bytes=1)
+        rep = fresh.recover(str(tmp_path / sub), verify_payloads=verify_payloads)
+        reports.append((sorted(rep["recovered"]), len(rep["quarantined"]), fresh.tier_of("bad")))
+        if cls is SynapseStore:
+            _bitwise(_snap(1), fresh.get_host("good"))
+    assert reports[0] == reports[1]
+    if verify_payloads:
+        assert reports[0] == (["good"], 1, None)
+    else:
+        assert reports[0] == (["bad", "good"], 0, "cold")
+
+
+def test_recover_without_verify_payloads_loses_the_blob_at_read(tmp_path):
+    """The blob adopted without ``verify_payloads`` is caught at its first
+    read instead: quarantined and lost, in both packages."""
+    for cls, faults, snap, sub in ((SynapseStore, FaultInjector(), _snap(2), "port"),
+                                   (JaxStore, JaxFaults(), _np_snap(2), "ref")):
+        store = cls(warm_capacity_bytes=1, cold_dir=str(tmp_path / sub), faults=faults.flip_write("bad"))
+        store.put("bad", snap)
+        fresh = cls(warm_capacity_bytes=1)
+        assert fresh.recover(str(tmp_path / sub))["recovered"] == ["bad"]
+        with pytest.raises(Exception) as lost:
+            fresh.get_host("bad")
+        assert type(lost.value).__name__ == "SnapshotLostError"
+        assert fresh.tier_of("bad") is None and fresh.stats["quarantined"] == 1
+
+
+@pytest.mark.parametrize("verify", [True, False])
+def test_get_host_verify_skips_the_digest_as_the_reference(tmp_path, monkeypatch, verify):
+    """``get_host(verify=False)`` reads a cold blob back without computing
+    its payload digest; the default computes it once. The same snapshot
+    comes back either way, in both packages."""
+    counts = {}
+    for name, mod in (("port", tio), ("ref", jio)):
+        real = mod._digest
+        monkeypatch.setattr(mod, "_digest", lambda data, h, _r=real, _n=name: (
+            counts.__setitem__(_n, counts.get(_n, 0) + 1), _r(data, h))[1])
+    port, ref = (SynapseStore(warm_capacity_bytes=1, cold_dir=str(tmp_path / "port")),
+                 JaxStore(warm_capacity_bytes=1, cold_dir=str(tmp_path / "ref")))
+    port.put("a", _snap(3))
+    ref.put("a", _np_snap(3))
+    counts.clear()
+    got = port.get_host("a", verify=verify)
+    want = ref.get_host("a", verify=verify)
+    assert counts.get("port", 0) == counts.get("ref", 0) == (1 if verify else 0)
+    _bitwise(_snap(3), got)
+    for k, v in want.items():
+        np.testing.assert_array_equal(tio.as_tensor(got[k]).numpy(), np.asarray(v))
+
+
+@pytest.mark.parametrize("level", [0, 3, 9])
+def test_cold_level_reaches_the_frame(tmp_path, monkeypatch, level):
+    """``cold_level`` is the level each cold blob is compressed at (default
+    3, as in the reference); the snapshot round-trips bitwise at each."""
+    seen = {}
+    for name, mod in (("port", tstore.ckpt_io), ("ref", jstore.ckpt_io)):
+        real = mod.dumps_framed
+        monkeypatch.setattr(mod, "dumps_framed", lambda tree, *, _r=real, _n=name, **kw: (
+            seen.setdefault(_n, []).append(kw["level"]), _r(tree, **kw))[1])
+    assert SynapseStore().cold_level == JaxStore().cold_level == 3
+    port = SynapseStore(warm_capacity_bytes=1, cold_dir=str(tmp_path / "port"), cold_level=level)
+    ref = JaxStore(warm_capacity_bytes=1, cold_dir=str(tmp_path / "ref"), cold_level=level)
+    snap = {"zeros": torch.zeros(4096), "tok": torch.tensor(1, dtype=torch.int32)}
+    port.put("a", snap)
+    ref.put("a", {k: v.numpy() for k, v in snap.items()})
+    assert seen == {"port": [level], "ref": [level]}
+    _bitwise(snap, port.get_host("a"))
+
+
+def test_backoff_is_capped_as_the_reference(tmp_path, monkeypatch):
+    """Three transient read failures with a 1 s base backoff and a 5 ms cap:
+    every sleep between retries is the cap (the base alone would sleep 1, 2
+    and 4 s), in both packages; the default cap is the reference's 1 s."""
+    assert SynapseStore().wake_backoff_cap_s == JaxStore().wake_backoff_cap_s == 1.0
+    delays = {}
+    for name, mod in (("port", tstore), ("ref", jstore)):
+        clock = type("Clock", (), {"__getattr__": lambda self, a: getattr(time, a),
+                                   "sleep": lambda self, s, _n=name: delays.setdefault(_n, []).append(s)})()
+        monkeypatch.setattr(mod, "time", clock)
+    for name, cls, faults, snap in (("port", SynapseStore, FaultInjector(), _snap(4)),
+                                    ("ref", JaxStore, JaxFaults(), _np_snap(4))):
+        store = cls(warm_capacity_bytes=1, cold_dir=str(tmp_path / name), wake_retries=3, wake_backoff_s=1.0,
+                    wake_backoff_cap_s=0.005, faults=faults.fail_read("a", times=3))
+        store.put("a", snap)
+        store.prefetch("a").result(timeout=30)
+        assert store.stats["wake_retries"] == 3
+    assert delays == {"port": [0.005] * 3, "ref": [0.005] * 3}

@@ -12,12 +12,20 @@ timing and the engine come from ``chip_smoke.py`` of this checkout.
 It prints one JSON line: the card's name and power limit, and for each
 kernel at the main path's shapes in bf16 the median device time of one
 call (``chip_smoke.time_ms``: CUDA events, L2 flushed before each call,
-median of 50) at the full batch and at B = 1, and the host time to enqueue
-one call (mean of 2000, no sync inside). ``floor_ms`` is the same timing
-around a one-element ``add_``: the launch and event overhead any single
-kernel pays. With ``--sweep`` it also times ``landmark_score`` at tiles
-of 32 to 256 keys and 7, 4 or 2 query rows per pass, and
-``synapse_attention`` with ring stages of 16 to 64 KB and at most 4 or 16
+median of 50) at the full batch and at B = 1, the host time to enqueue one
+call (mean of 2000, no sync inside), and ``busy_us``, the device time of
+one call's kernels from torch.profiler (L2 flushed, launch gaps left out):
+``synapse_attention`` at the side decode, ``landmark_score``'s logits at
+Qwen2.5-0.5B's and zamba2's spawns, and the spawn's density,
+``ops.landmark_score`` with every key valid, at both and at qwen1.5-110b's
+heads on one lane of T = 32,768 (one launch in density
+mode; in a tree without that mode, the kernel and three PyTorch calls
+after it). ``floor_ms`` is the same timing around a one-element ``add_``:
+the launch and event overhead any single kernel pays. ``matmul`` entries
+time ``torch.matmul`` of the logits at both spawns the same ways. With
+``--sweep`` it also times ``landmark_score`` in both modes with tiles of 8
+to 64 KB and at most 4 to 64 ranges a lane, and ``synapse_attention``
+with ring stages of 16 to 64 KB and at most 4 or 16
 ranges a (lane, kv head) (this tree's kernels only). With
 ``--tick`` it also drives the Qwen2.5-0.5B engine at full width as
 ``chip_smoke.py`` does and reports the median tick over four timed
@@ -50,8 +58,29 @@ def host_us(fn, iters: int = 2000) -> float:
     return dt / iters * 1e6
 
 
+def busy_us(fn, iters: int = 20) -> float:
+    """Device time of one call from torch.profiler's CUDA kernel records
+    (the launch gaps left out), the L2 flushed before each call as in
+    ``chip_smoke.time_ms``; the flush's own fill kernels are not counted.
+    A call of several kernels counts all of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "fill" not in e.key.lower()]
+    return sum(e.self_device_time_total for e in events) / iters
+
+
 def kernel_times() -> dict:
     from repro_torch.kernels import landmark_score as ls
+    from repro_torch.kernels import ops
     from repro_torch.kernels import synapse_attention as sa
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -61,13 +90,27 @@ def kernel_times() -> dict:
     for name, shape, call in (
         ("synapse_attention", cs.SYN_MAIN, lambda q, k, v, valid: sa.synapse_attention(q, k, v, valid)),
         ("landmark_score", cs.LM_MAIN, lambda q, k, v, valid: ls.landmark_score(q, k)),
+        ("landmark_score_zamba2", cs.LM_ZAMBA, lambda q, k, v, valid: ls.landmark_score(q, k)),
+        # the spawn's density: the parent's four-call path, or one launch
+        ("landmark_density", cs.LM_MAIN, lambda q, k, v, valid: ops.landmark_score(q, k, None, valid)),
+        ("landmark_density_zamba2", cs.LM_ZAMBA, lambda q, k, v, valid: ops.landmark_score(q, k, None, valid)),
+        ("landmark_density_long", cs.LM_LONG[1], lambda q, k, v, valid: ops.landmark_score(q, k, None, valid)),
     ):
         r = {}
         for B in (1, shape[0]):
             q, k, v, valid, _ = cs.kernel_inputs((B,) + shape[1:], torch.bfloat16, g)
+            valid = torch.ones_like(valid) if name.startswith("landmark_density") else valid
             r[f"B{B}_ms"] = cs.time_ms(lambda: call(q, k, v, valid), iters=50)
         r["host_us"] = host_us(lambda: call(q, k, v, valid))  # at the full batch
+        r["busy_us"] = busy_us(lambda: call(q, k, v, valid))
         rec[name] = r
+    # the library's product of the logits alone at both spawns, the same two ways
+    for name, shape in (("matmul", cs.LM_MAIN), ("matmul_zamba2", cs.LM_ZAMBA)):
+        B, H, Hkv, D, T = shape
+        q, k, _, _, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
+        qg, kt = q.reshape(B, Hkv, H // Hkv, D), k.permute(0, 2, 3, 1).contiguous()
+        rec[name] = {f"B{B}_ms": cs.time_ms(lambda: torch.matmul(qg, kt), iters=50),
+                     "busy_us": busy_us(lambda: torch.matmul(qg, kt))}
     return rec
 
 
@@ -99,31 +142,37 @@ def synapse_sweep() -> dict:
 
 
 def landmark_sweep() -> dict:
-    """``landmark_score`` at the spawn's shape under other launch plans:
-    keys per tile x query rows per pass. The wrapper takes no plan, so the
-    launch is built here from its plan's numbers; each output must equal
-    the wrapper's bitwise (neither choice changes a sum's order)."""
+    """``landmark_score`` at both spawns' shapes under other launch plans:
+    tiles of about 8 to 64 KB and at most 4, 8 or 16 ranges a lane (32 or 64
+    more in logits mode), in
+    logits mode and in density mode (every key valid), launched through
+    the wrapper's ``launch``. The logits must equal the wrapper's bitwise
+    (neither choice changes a sum's order); the density may differ in its
+    last bits (the ranges change the order of the softmax's sums)."""
     from repro_torch.kernels import landmark_score as ls
 
-    B, H, Hkv, D, T = cs.LM_MAIN
-    G = H // Hkv
-    q, k, _, _, _ = cs.kernel_inputs(cs.LM_MAIN, torch.bfloat16, torch.Generator(device="cuda").manual_seed(0))
-    want, _ = ls.landmark_score(q, k)
-    base = ls.launch_plan(B, T, H, Hkv, D, 0, 2)
-    out = torch.empty_like(want)
+    g = torch.Generator(device="cuda").manual_seed(0)
     rec = {}
-    for bt in (32, 64, 128, 256):
-        for rows in (7, 4, 2):
-            threads = min(256, -(-(bt * Hkv * -(-G // rows)) // 32) * 32)
-            smem = base.smem + (bt - base.block_t) * Hkv * D * 2
-
-            def call():
-                ls.KERNEL.launch(q.data_ptr(), k.data_ptr(), None, out.data_ptr(), None, B, T, Hkv, G, D, 0,
-                                 bt, rows, threads, smem, D ** -0.5, float(D), 1)
-            call()
-            if not torch.equal(out, want):
-                raise AssertionError(f"landmark_score with {bt}-key tiles and {rows} rows per pass differs")
-            rec[f"block_t{bt}_rows{rows}_ms"] = cs.time_ms(call, iters=50)
+    for shape in (cs.LM_MAIN, cs.LM_ZAMBA):
+        B, H, Hkv, D, T = shape
+        q, k, _, valid, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
+        valid = torch.ones_like(valid)
+        for density in (False, True):
+            want, _ = ls.landmark_density(q, k, None, valid) if density else ls.landmark_score(q, k)
+            for stage_bytes in (8192, 16384, 32768, 65536):
+                for max_ranges in (4, 8, 16) + (() if density else (32, 64)):
+                    plan = ls.card_plan(q.device, B, T, H, Hkv, D, 0, 2, density=density, stage_bytes=stage_bytes,
+                                        max_ranges=max_ranges)
+                    call = lambda: ls.launch(plan, q, k, None, valid if density else None, D ** -0.5)
+                    got, _ = call()
+                    if density:
+                        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+                    elif not torch.equal(got, want):
+                        raise AssertionError(f"landmark_score logits under {plan} differ")
+                    rec[f"{'x'.join(map(str, shape))}_{'density' if density else 'logits'}"
+                        f"_stage{stage_bytes // 1024}k_ranges{max_ranges}"] = {
+                        "ranges": plan.ranges_per_lane, "chunk_keys": plan.chunk_keys, "stages": plan.stages,
+                        "ms": cs.time_ms(call, iters=50)}
     return rec
 
 

@@ -13,8 +13,11 @@ time the kernel itself). The stamped library stands in for the kernel's own
 behind its wrapper, so the launches take the wrapper's plan and arguments.
 Each kernel runs at the main path's shapes in bf16, at the full batch and
 at B = 1 (``synapse_attention`` also at the long key set ``SYN_LONG`` and
-at qwen3-8b's one-lane side decode ``SYN_QWEN3``), with the L2 flushed
-before each run; the script prints one JSON
+at qwen3-8b's one-lane side decode ``SYN_QWEN3``; ``landmark_score`` in
+logits mode also at zamba2's spawn, and in density mode at both spawns
+with every key valid, at Qwen2.5's with a fifth of the slots valid, and at
+T = 32,768 on one lane, in kv-head groups and, for one kv head, sweeping
+the keys twice), with the L2 flushed before each run; the script prints one JSON
 line per case: for each phase the median and largest cycle count over the
 blocks, and the nanoseconds from the first block's start to the last
 block's end.
@@ -44,7 +47,9 @@ __device__ unsigned long long g_stamp[{MAX_BLOCKS * MARKS * 2}];
 extern "C" int stamps_read(void* dst) {{ return (int)cudaMemcpyFromSymbol(dst, g_stamp, sizeof(g_stamp)); }}
 """
 PHASES = {  # the phase that ends at mark i + 1
-    "landmark_score": ["copies issued, q staged", "keys landed", "density logits"],
+    "landmark_score": ["mask read, copies issued", "q and the first tiles landed",
+                       "first sweep: logits, then max and sum or stores", "exchange and combine",
+                       "density (a second sweep where the logits do not stay)"],
     "synapse_attention": ["copies issued, q staged", "scores", "softmax statistics", "p~.V", "exchange",
                           "combine, out, mass part", "mass over kv heads"],
 }
@@ -101,11 +106,16 @@ def main() -> int:
             rec[phase] = {"median_cycles": cyc[len(cyc) // 2], "max_cycles": cyc[-1]}
         print(json.dumps(rec), flush=True)
 
-    for shape in (cs.LM_MAIN, (1,) + cs.LM_MAIN[1:]):
+    for shape, mode in ((cs.LM_MAIN, "logits"), ((1,) + cs.LM_MAIN[1:], "logits"), (cs.LM_ZAMBA, "logits"),
+                        (cs.LM_MAIN, "density"), (cs.LM_ZAMBA, "density"), (cs.LM_MAIN, "density, a fifth valid"),
+                        (cs.LM_LONG[1], "density"), (cs.LM_LONG[2], "density")):
         B, H, Hkv, D, T = shape
-        q, k, _, _, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
-        plan = ls.launch_plan(B, T, H, Hkv, D, 0, 2)
-        report("landmark_score", f"B={B} T={T} density-only", lambda: ls.landmark_score(q, k), plan.grid[0] * B)
+        q, k, _, valid, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
+        valid = torch.arange(T, device="cuda").expand(B, T) < (T // 5 if "fifth" in mode else T)
+        valid = valid.contiguous()
+        plan = ls.card_plan(q.device, B, T, H, Hkv, D, 0, 2, density=mode != "logits")
+        call = (lambda: ls.landmark_score(q, k)) if mode == "logits" else (lambda: ls.landmark_density(q, k, None, valid))
+        report("landmark_score", f"B={B} H={H} Hkv={Hkv} D={D} T={T} {mode}", call, plan.ctas)
     for shape in (cs.SYN_MAIN, (1,) + cs.SYN_MAIN[1:], cs.SYN_LONG, cs.SYN_QWEN3):
         B, H, Hkv, D, T = shape
         q, k, v, valid, _ = cs.kernel_inputs(shape, torch.bfloat16, g)
