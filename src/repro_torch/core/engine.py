@@ -79,6 +79,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import injection
 from repro_torch.core import synapse as synapse_lib
 from repro_torch.core.prism import Prism, tree_bytes
@@ -226,47 +227,53 @@ def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec,
     """
     m_act, s_act = st.main_active, st.side_active
     M = m_act.shape[0]
-    logits_m, hidden_m, _ = model_lib.decode_step(
-        params, cfg, {"tokens": st.main_tok, "positions": st.main_pos}, st.main_caches, spec=main_spec,
-    )
-    if step_sides:
-        # teacher-force the on-device task prompt, then free-run from the
-        # last sampled token; the sampled token counts from the last forced
-        # step on
-        forced = st.side_step < st.side_plen
-        pidx = torch.clamp(st.side_step, 0, st.side_prompt.shape[1] - 1).long()
-        prompt_tok = torch.gather(st.side_prompt, 1, pidx[:, None])[:, 0]
-        zero = torch.zeros_like(st.side_tok)
-        in_tok = torch.where(s_act, torch.where(forced, prompt_tok, st.side_tok), zero)
-        in_pos = torch.where(s_act, st.side_pos, zero)
-        logits_s, hidden_s, _ = model_lib.decode_step(
-            params, cfg, {"tokens": in_tok, "positions": in_pos}, st.side_caches, spec=side_spec,
-        )
-        if st.side_gen is None:
-            samp = sample_lanes(
-                st.gen, torch.cat([logits_m, logits_s]), cat_lanes(st.main_samp, st.side_samp),
-                use_filters=use_filters, any_greedy=any_greedy,
+    with trace.span("engine.tick"):
+        with trace.span("tick.river"):
+            logits_m, hidden_m, _ = model_lib.decode_step(
+                params, cfg, {"tokens": st.main_tok, "positions": st.main_pos}, st.main_caches, spec=main_spec,
             )
-            samp_m, samp_s = samp[:M], samp[M:]
-        else:
-            samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters, any_greedy=any_greedy)
-            samp_s = sample_lanes(st.side_gen, logits_s, st.side_samp, use_filters=use_filters,
-                                  any_greedy=any_greedy)
-    else:
-        samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters, any_greedy=any_greedy)
-
-    ring_append(st.main_ring, torch.where(m_act, samp_m, torch.full_like(samp_m, -1)), cursor)
-    st.main_tok.copy_(torch.where(m_act, samp_m, st.main_tok))
-    st.main_pos.add_(m_act.to(torch.int32))
-    st.main_hidden.copy_(hidden_m.float())
-    if not step_sides:
-        return
-    keep = s_act & (st.side_step >= st.side_plen - 1)
-    ring_append(st.side_ring, torch.where(keep, samp_s, torch.full_like(samp_s, -1)), cursor)
-    st.side_tok.copy_(torch.where(keep, samp_s, st.side_tok))
-    st.side_pos.add_(s_act.to(torch.int32))
-    st.side_step.add_(s_act.to(torch.int32))
-    st.side_hidden.copy_(hidden_s.float())
+        if step_sides:
+            with trace.span("tick.side"):
+                # teacher-force the on-device task prompt, then free-run from
+                # the last sampled token; the sampled token counts from the
+                # last forced step on
+                forced = st.side_step < st.side_plen
+                pidx = torch.clamp(st.side_step, 0, st.side_prompt.shape[1] - 1).long()
+                prompt_tok = torch.gather(st.side_prompt, 1, pidx[:, None])[:, 0]
+                zero = torch.zeros_like(st.side_tok)
+                in_tok = torch.where(s_act, torch.where(forced, prompt_tok, st.side_tok), zero)
+                in_pos = torch.where(s_act, st.side_pos, zero)
+                logits_s, hidden_s, _ = model_lib.decode_step(
+                    params, cfg, {"tokens": in_tok, "positions": in_pos}, st.side_caches, spec=side_spec,
+                )
+        with trace.span("tick.sample"):
+            if not step_sides:
+                samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters,
+                                      any_greedy=any_greedy)
+            elif st.side_gen is None:
+                samp = sample_lanes(
+                    st.gen, torch.cat([logits_m, logits_s]), cat_lanes(st.main_samp, st.side_samp),
+                    use_filters=use_filters, any_greedy=any_greedy,
+                )
+                samp_m, samp_s = samp[:M], samp[M:]
+            else:
+                samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters,
+                                      any_greedy=any_greedy)
+                samp_s = sample_lanes(st.side_gen, logits_s, st.side_samp, use_filters=use_filters,
+                                      any_greedy=any_greedy)
+        with trace.span("tick.commit"):
+            ring_append(st.main_ring, torch.where(m_act, samp_m, torch.full_like(samp_m, -1)), cursor)
+            st.main_tok.copy_(torch.where(m_act, samp_m, st.main_tok))
+            st.main_pos.add_(m_act.to(torch.int32))
+            st.main_hidden.copy_(hidden_m.float())
+            if not step_sides:
+                return
+            keep = s_act & (st.side_step >= st.side_plen - 1)
+            ring_append(st.side_ring, torch.where(keep, samp_s, torch.full_like(samp_s, -1)), cursor)
+            st.side_tok.copy_(torch.where(keep, samp_s, st.side_tok))
+            st.side_pos.add_(s_act.to(torch.int32))
+            st.side_step.add_(s_act.to(torch.int32))
+            st.side_hidden.copy_(hidden_s.float())
 
 
 # byte values the conservative drain gate inspects on the raw token rings
@@ -480,6 +487,11 @@ class CortexEngine:
             # hibernated (retryable); lost_agents: the snapshot is gone and
             # the agent is LOST; recoveries: agents re-adopted after a restart
             "wake_failures": 0, "lost_agents": 0, "recoveries": 0,
+            # [TASK] triggers given a side lane, and dropped for want of one
+            "spawns": 0, "spawns_dropped": 0,
+            # side lanes decoded, summed over the ticks that step sides, and
+            # the live ones among them (the rest decode garbage harmlessly)
+            "side_lane_ticks": 0, "live_side_lane_ticks": 0,
         }
         if self.mesh is not None:
             self.stats["ring_gathers"] = 0  # the all-gathers of the side rings: one per drain
@@ -549,9 +561,10 @@ class CortexEngine:
         ids = self.tok.encode(prompt, bos=True)
         toks = torch.tensor([ids], dtype=torch.int32, device=self.device)
         st = self.state
-        _, hidden, _ = model_lib.prefill_lane(
-            self._params, self.cfg, {"tokens": toks}, st.main_caches, lane, spec=self.main_spec
-        )
+        with trace.span("engine.prefill", agent=aid, tokens=len(ids)):
+            _, hidden, _ = model_lib.prefill_lane(
+                self._params, self.cfg, {"tokens": toks}, st.main_caches, lane, spec=self.main_spec
+            )
         self._main_sp[lane] = sampling if sampling is not None else self.sampling
         st.main_tok[lane] = ids[-1]
         st.main_pos[lane] = len(ids)
@@ -571,7 +584,7 @@ class CortexEngine:
         self.router.reset(m.agent_id)
         for tr in self.router.feed(m.agent_id, prompt):
             if tr.kind == "task":
-                self._spawn_side(m, tr.payload)
+                self._spawn_task(m, tr.payload)
         return m
 
     def _claim_main_identity(self, lane: int, agent_id: str | None) -> str:
@@ -655,12 +668,19 @@ class CortexEngine:
         assert self._pending + n <= self.max_window
         step_sides = any(s.active for s in self.sides)
         use_filters, any_greedy = self._sampler_flags(step_sides)
-        for i in range(n):
-            one_tick(
-                self._params, self.state, self._pending + i, cfg=self.cfg,
-                main_spec=self.main_spec, side_spec=self.side_spec, step_sides=step_sides,
-                use_filters=use_filters, any_greedy=any_greedy,
-            )
+        # side lanes decoded (the whole block this process holds) and the
+        # live ones among them, from the host views
+        live = sum(s.active for s in self.sides[self._lanes.span]) if step_sides else 0
+        if step_sides:
+            self.stats["side_lane_ticks"] += n * self._lanes.block
+            self.stats["live_side_lane_ticks"] += n * live
+        with trace.span("engine.dispatch", ticks=n, rivers=sum(m.active for m in self.mains), sides=live):
+            for i in range(n):
+                one_tick(
+                    self._params, self.state, self._pending + i, cfg=self.cfg,
+                    main_spec=self.main_spec, side_spec=self.side_spec, step_sides=step_sides,
+                    use_filters=use_filters, any_greedy=any_greedy,
+                )
         self.stats["ticks"] += n
         self.stats["tick_dispatches"] += 1
         if n > 1:
@@ -746,74 +766,76 @@ class CortexEngine:
         ``pipeline=False`` runs the serial loop (the parity reference)."""
         if not self.pipeline:
             return self._run_serial(n_ticks)
-        remaining = n_ticks
-        # close a partly filled window (tick() interleavings) as the serial
-        # path would before entering the pipeline at a boundary
-        while 0 < remaining and self._pending and self._any_active():
-            w = min(self.sync_every - self._pending, remaining)
-            self._dispatch_window(w)
-            remaining -= w
-            if self._pending >= self.sync_every:
+        with trace.span("engine.run", ticks=n_ticks):
+            remaining = n_ticks
+            # close a partly filled window (tick() interleavings) as the serial
+            # path would before entering the pipeline at a boundary
+            while 0 < remaining and self._pending and self._any_active():
+                w = min(self.sync_every - self._pending, remaining)
+                self._dispatch_window(w)
+                remaining -= w
+                if self._pending >= self.sync_every:
+                    self.drain()
+            if self._pending:
                 self.drain()
-        if self._pending:
-            self.drain()
 
-        inflight = 0  # virtual ticks of the window on the device
-        while remaining or inflight:
-            if not inflight:
-                # window boundary, nothing in flight: idle-tick demotions,
-                # ready wakes and admissions land here (an idle engine
-                # waits for its prefetches, so a wake-only run progresses)
-                self._boundary_ops(wait=not self._any_active())
-                if not self._any_active():
-                    self.stats["ticks"] += remaining
-                    return
-                inflight = self._next_window(remaining)
-                self._dispatch_window(inflight)
-                self._prefetch_rings()
-                remaining -= inflight
-                continue
-            rings, nwin = self._fetch_rings(), inflight
-            inflight = 0
-            # ready wakes commit between the ring fetch and the next
-            # dispatch: window t+1 carries the woken lanes, and nothing is
-            # flushed (no demotions here: window t's views are still stale)
-            self._commit_ready_wakes(mark_fresh=True)
-            if remaining and self._any_active() and self._gate(rings, nwin):
-                # overlap: the device runs window t+1 while the host does
-                # window t's decoding and router work (control-free by the
-                # gate); the window policy counts window t's ring tokens
-                inflight = self._next_window(remaining, pending=(rings, nwin))
-                self._dispatch_window(inflight)
-                self._prefetch_rings()
-                remaining -= inflight
-                self._postprocess(rings, nwin, overlapped=True)
-                self.stats["overlapped_drains"] += 1
-            else:
-                self._postprocess(rings, nwin)
-        self._boundary_ops()
+            inflight = 0  # virtual ticks of the window on the device
+            while remaining or inflight:
+                if not inflight:
+                    # window boundary, nothing in flight: idle-tick demotions,
+                    # ready wakes and admissions land here (an idle engine
+                    # waits for its prefetches, so a wake-only run progresses)
+                    self._boundary_ops(wait=not self._any_active())
+                    if not self._any_active():
+                        self.stats["ticks"] += remaining
+                        return
+                    inflight = self._next_window(remaining)
+                    self._dispatch_window(inflight)
+                    self._prefetch_rings()
+                    remaining -= inflight
+                    continue
+                rings, nwin = self._fetch_rings(), inflight
+                inflight = 0
+                # ready wakes commit between the ring fetch and the next
+                # dispatch: window t+1 carries the woken lanes, and nothing is
+                # flushed (no demotions here: window t's views are still stale)
+                self._commit_ready_wakes(mark_fresh=True)
+                if remaining and self._any_active() and self._gate(rings, nwin):
+                    # overlap: the device runs window t+1 while the host does
+                    # window t's decoding and router work (control-free by the
+                    # gate); the window policy counts window t's ring tokens
+                    inflight = self._next_window(remaining, pending=(rings, nwin))
+                    self._dispatch_window(inflight)
+                    self._prefetch_rings()
+                    remaining -= inflight
+                    self._postprocess(rings, nwin, overlapped=True)
+                    self.stats["overlapped_drains"] += 1
+                else:
+                    self._postprocess(rings, nwin)
+            self._boundary_ops()
 
     def _run_serial(self, n_ticks: int):
         """The serial loop: dispatch → drain → dispatch, pinned
         ``sync_every`` windows. The bitwise parity reference."""
-        remaining = n_ticks
-        while remaining > 0:
-            if self._pending == 0:
-                self._boundary_ops(wait=not self._any_active())
-            if not self._any_active():
-                self.stats["ticks"] += remaining
-                break
-            w = min(self.sync_every - self._pending, remaining)
-            if w <= 1:
-                self.tick()  # drains itself when the window closes
-                remaining -= 1
-                continue
-            self._dispatch_window(w)
-            remaining -= w
-            if self._pending >= self.sync_every:
-                self.drain()
-        self.drain()
-        self._boundary_ops()
+        with trace.span("engine.run", ticks=n_ticks):
+            remaining = n_ticks
+            while remaining > 0:
+                if self._pending == 0:
+                    self._boundary_ops(wait=not self._any_active())
+                if not self._any_active():
+                    self.stats["ticks"] += remaining
+                    break
+                w = min(self.sync_every - self._pending, remaining)
+                if w <= 1:
+                    self.tick()  # drains itself when the window closes
+                    remaining -= 1
+                    continue
+                self._dispatch_window(w)
+                remaining -= w
+                if self._pending >= self.sync_every:
+                    self.drain()
+            self.drain()
+            self._boundary_ops()
 
     def _boundary_ops(self, *, wait: bool = False) -> int:
         """Window-boundary control plane, run with nothing in flight:
@@ -821,10 +843,12 @@ class CortexEngine:
         admission hook (retire finished request lanes, admit queued ones).
         ``wait=True`` blocks on outstanding prefetch tickets (an engine with
         nothing else to do). Returns how many operations landed."""
-        did = self._auto_hibernate()
-        did += self._commit_ready_wakes(wait=wait and bool(self._pending_wakes))
-        if self.admission_hook is not None:
-            did += int(bool(self.admission_hook()))
+        with trace.span("engine.boundary") as sp:
+            did = self._auto_hibernate()
+            did += self._commit_ready_wakes(wait=wait and bool(self._pending_wakes))
+            if self.admission_hook is not None:
+                did += int(bool(self.admission_hook()))
+            sp.set(ops=did)
         return did
 
     # ------------------------------------------------------------------
@@ -864,11 +888,12 @@ class CortexEngine:
         """The pipeline's sync point: the rings on the host (ONE blocking
         transfer, or the wait for the prefetched one), as a host copy the
         next window's prefetch cannot overwrite. Resets the ring cursor."""
-        if self._prefetched:
-            if self._ring_event is not None:
-                self._ring_event.synchronize()
-        else:
-            self._ring_host.copy_(self._gathered_rings())
+        with trace.span("engine.fetch", prefetched=self._prefetched):
+            if self._prefetched:
+                if self._ring_event is not None:
+                    self._ring_event.synchronize()
+            else:
+                self._ring_host.copy_(self._gathered_rings())
         self._prefetched = False
         rings = self._ring_host.numpy().copy()
         self.stats["host_syncs"] += 1
@@ -881,81 +906,82 @@ class CortexEngine:
         rivers' tasks, then the window policy. With ``overlapped=True`` the
         next window is already on the device, so any control op here would
         be a gate violation (asserted; the gate makes it unreachable)."""
-        main_ring, side_ring = rings
-        self.stats["drains"] += 1
-        quiet = True
+        with trace.span("engine.postprocess", overlapped=overlapped):
+            main_ring, side_ring = rings
+            self.stats["drains"] += 1
+            quiet = True
 
-        # 1. rivers: append the window's tokens (incremental UTF-8 decode)
-        main_chunks: dict[int, str] = {}
-        for m in self.mains:
-            if not m.active or ("main", m.lane) in self._fresh_wakes:
-                continue  # a fresh wake was not on the device for this window
-            toks = [int(t) for t in main_ring[m.lane, :n] if t >= 0]
-            chunk = self._decoder(m.agent_id).feed(toks)
-            m.tokens.extend(toks)
-            m.text += chunk
-            m.position += len(toks)
-            m.steps += len(toks)
-            main_chunks[m.lane] = chunk
-            if self.stream_tap is not None and toks:
-                self.stream_tap(m, chunk, toks)
+            # 1. rivers: append the window's tokens (incremental UTF-8 decode)
+            main_chunks: dict[int, str] = {}
+            for m in self.mains:
+                if not m.active or ("main", m.lane) in self._fresh_wakes:
+                    continue  # a fresh wake was not on the device for this window
+                toks = [int(t) for t in main_ring[m.lane, :n] if t >= 0]
+                chunk = self._decoder(m.agent_id).feed(toks)
+                m.tokens.extend(toks)
+                m.text += chunk
+                m.position += len(toks)
+                m.steps += len(toks)
+                main_chunks[m.lane] = chunk
+                if self.stream_tap is not None and toks:
+                    self.stream_tap(m, chunk, toks)
 
-        # 2. streams: append, detect completion (trigger or step budget)
-        finished = []
-        for s in self.sides:
-            if not s.active or ("side", s.lane) in self._fresh_wakes:
-                continue  # a fresh wake was not on the device for this window
-            s.steps += n
-            s.position += n
-            raw = [int(t) for t in side_ring[s.lane, :n] if t >= 0]
-            allowed = max(0, self.side_max_steps - (len(s.tokens) - s.prompt_len))
-            raw = raw[:allowed]
-            s.tokens.extend(raw)
-            chunk = self._decoder(s.agent_id).feed(raw)
-            s.text += chunk
-            if self.stream_tap is not None and raw:
-                self.stream_tap(s, chunk, raw)
-            all_trig = self.router.feed(s.agent_id, chunk)
-            quiet = quiet and not all_trig
-            trig = [t for t in all_trig if t.kind in ("done", "answer")]
-            generated = len(s.tokens) - s.prompt_len
-            if trig or generated >= self.side_max_steps:
-                # end of stream: flush so s.text equals the one-shot decode
-                s.text += self._decoder(s.agent_id).flush()
-                answer = next((t.payload for t in trig if t.kind == "answer"), None)
-                if answer is not None:
-                    thought = answer
-                elif trig:
-                    # spans are absolute offsets into the generated stream:
-                    # cut what the lane produced after the trigger
-                    thought = s.text[: trig[0].span[1]]
-                else:
-                    thought = s.text
-                finished.append((s, thought))
+            # 2. streams: append, detect completion (trigger or step budget)
+            finished = []
+            for s in self.sides:
+                if not s.active or ("side", s.lane) in self._fresh_wakes:
+                    continue  # a fresh wake was not on the device for this window
+                s.steps += n
+                s.position += n
+                raw = [int(t) for t in side_ring[s.lane, :n] if t >= 0]
+                allowed = max(0, self.side_max_steps - (len(s.tokens) - s.prompt_len))
+                raw = raw[:allowed]
+                s.tokens.extend(raw)
+                chunk = self._decoder(s.agent_id).feed(raw)
+                s.text += chunk
+                if self.stream_tap is not None and raw:
+                    self.stream_tap(s, chunk, raw)
+                all_trig = self.router.feed(s.agent_id, chunk)
+                quiet = quiet and not all_trig
+                trig = [t for t in all_trig if t.kind in ("done", "answer")]
+                generated = len(s.tokens) - s.prompt_len
+                if trig or generated >= self.side_max_steps:
+                    # end of stream: flush so s.text equals the one-shot decode
+                    s.text += self._decoder(s.agent_id).flush()
+                    answer = next((t.payload for t in trig if t.kind == "answer"), None)
+                    if answer is not None:
+                        thought = answer
+                    elif trig:
+                        # spans are absolute offsets into the generated stream:
+                        # cut what the lane produced after the trigger
+                        thought = s.text[: trig[0].span[1]]
+                    else:
+                        thought = s.text
+                    finished.append((s, thought))
 
-        # 3. merges (free lanes before new spawns claim them)
-        assert not (overlapped and finished), "pipeline gate violated: merge"
-        for s, thought in finished:
-            self._merge_side(s, thought)
-        quiet = quiet and not finished
+            # 3. merges (free lanes before new spawns claim them)
+            assert not (overlapped and finished), "pipeline gate violated: merge"
+            for s, thought in finished:
+                self._merge_side(s, thought)
+            quiet = quiet and not finished
 
-        # 4. river triggers spawn new streams
-        for m in self.mains:
-            if not m.active or m.lane not in main_chunks:
-                continue
-            for tr in self.router.feed(m.agent_id, main_chunks[m.lane]):
-                quiet = False
-                assert not overlapped, "pipeline gate violated: trigger"
-                if tr.kind == "task":
-                    self._spawn_side(m, tr.payload)
+            # 4. river triggers spawn new streams
+            for m in self.mains:
+                if not m.active or m.lane not in main_chunks:
+                    continue
+                for tr in self.router.feed(m.agent_id, main_chunks[m.lane]):
+                    quiet = False
+                    assert not overlapped, "pipeline gate violated: trigger"
+                    if tr.kind == "task":
+                        self._spawn_task(m, tr.payload)
 
-        # 5. window policy: quiet drains earn longer windows, any control
-        # event snaps back to the base window
-        if quiet:
-            self.window.on_quiet_drain()
-        else:
-            self.window.on_event()
-        self._fresh_wakes.clear()  # the next window has the woken lanes aboard
+            # 5. window policy: quiet drains earn longer windows, any control
+            # event snaps back to the base window
+            if quiet:
+                self.window.on_quiet_drain()
+            else:
+                self.window.on_event()
+            self._fresh_wakes.clear()  # the next window has the woken lanes aboard
 
     # ------------------------------------------------------------------
     def _free_side_lane(self) -> int:
@@ -986,54 +1012,65 @@ class CortexEngine:
         if i is None:
             return
         st = self.state
-        comp = spawn_caches(self.cfg, model_lib.lane_caches(st.main_caches, parent_lane), self.side_spec)
-        model_lib.write_lane(st.side_caches, comp, i)
+        with trace.span("spawn.compress"):
+            comp = spawn_caches(self.cfg, model_lib.lane_caches(st.main_caches, parent_lane), self.side_spec)
+        with trace.span("spawn.write"):
+            model_lib.write_lane(st.side_caches, comp, i)
+
+    def _spawn_task(self, parent: AgentView, task: str):
+        """A river's ``[TASK: ...]`` trigger: counted in ``spawns`` when it
+        gets a side lane, in ``spawns_dropped`` when none is free."""
+        s = self._spawn_side(parent, task)
+        self.stats["spawns" if s is not None else "spawns_dropped"] += 1
 
     def _spawn_side(self, parent: AgentView, task: str, sampling: SamplingParams | None = None):
         lane = self._free_side_lane()
         if lane < 0:
             return None  # admission policy: drop when streams are saturated
-        self._spawn_lane(parent.lane, lane)
-        # keep the HEAD on overflow and close the frame: the '[TASK: ... ]'
-        # framing is what conditions the stream
-        ids = self.tok.encode(f"[TASK: {task}]")
-        truncated = len(ids) > self.side_prompt_cap
-        if truncated:
-            close = self.tok.encode("]")
-            ids = ids[: self.side_prompt_cap - len(close)] + close
-        padded = ids + [0] * (self.side_prompt_cap - len(ids))
-        self._side_sp[lane] = sampling if sampling is not None else self.side_sampling
-        i = self._lanes.local(lane)
-        if i is not None:
-            st = self.state
-            st.side_prompt[i] = torch.tensor(padded, dtype=torch.int32, device=self.device)
-            st.side_plen[i] = len(ids)
-            st.side_step[i] = 0
-            st.side_tok[i] = ids[-1]
-            st.side_pos[i] = parent.position
-            st.side_active[i] = True
-            st.side_samp.set_lane(i, *lane_values(self._side_sp[lane]))
-        self.stats["aux_dispatches"] += 2
-        s = self.sides[lane]
-        if s.agent_id in self.registry and self.registry.get(s.agent_id).status != REGISTERED:
-            # the per-lane identity is still bound elsewhere: mint a fresh one
-            s = AgentView(f"side{lane}.{self._agent_seq}", lane, "side")
-            self._agent_seq += 1
-            self.sides[lane] = s
-        s.task, s.text = task, ""
-        self._decoders[s.agent_id] = self.tok.stream_decoder()
-        s.parent_lane = parent.lane
-        s.tokens = list(ids)
-        s.position = parent.position  # continues the parent's positional frame
-        s.active, s.steps = True, 0
-        s.prompt_len = len(ids)
-        self.prism.acquire(s.agent_id)
-        self.registry.register(s.agent_id, "side")
-        rec = self.registry.bind(s.agent_id, lane)
-        rec.bound_tick = self.stats["ticks"]
-        self.history.append(
-            {"event": "spawn", "agent": s.agent_id, "task": task, "task_truncated": truncated}
-        )
+        with trace.span("engine.spawn", parent=parent.agent_id) as sp:
+            self._spawn_lane(parent.lane, lane)
+            # keep the HEAD on overflow and close the frame: the '[TASK: ... ]'
+            # framing is what conditions the stream
+            ids = self.tok.encode(f"[TASK: {task}]")
+            truncated = len(ids) > self.side_prompt_cap
+            if truncated:
+                close = self.tok.encode("]")
+                ids = ids[: self.side_prompt_cap - len(close)] + close
+            padded = ids + [0] * (self.side_prompt_cap - len(ids))
+            self._side_sp[lane] = sampling if sampling is not None else self.side_sampling
+            i = self._lanes.local(lane)
+            if i is not None:
+                st = self.state
+                with trace.span("spawn.write"):
+                    st.side_prompt[i] = torch.tensor(padded, dtype=torch.int32, device=self.device)
+                    st.side_plen[i] = len(ids)
+                    st.side_step[i] = 0
+                    st.side_tok[i] = ids[-1]
+                    st.side_pos[i] = parent.position
+                    st.side_active[i] = True
+                    st.side_samp.set_lane(i, *lane_values(self._side_sp[lane]))
+            self.stats["aux_dispatches"] += 2
+            s = self.sides[lane]
+            if s.agent_id in self.registry and self.registry.get(s.agent_id).status != REGISTERED:
+                # the per-lane identity is still bound elsewhere: mint a fresh one
+                s = AgentView(f"side{lane}.{self._agent_seq}", lane, "side")
+                self._agent_seq += 1
+                self.sides[lane] = s
+            sp.set(agent=s.agent_id)
+            s.task, s.text = task, ""
+            self._decoders[s.agent_id] = self.tok.stream_decoder()
+            s.parent_lane = parent.lane
+            s.tokens = list(ids)
+            s.position = parent.position  # continues the parent's positional frame
+            s.active, s.steps = True, 0
+            s.prompt_len = len(ids)
+            self.prism.acquire(s.agent_id)
+            self.registry.register(s.agent_id, "side")
+            rec = self.registry.bind(s.agent_id, lane)
+            rec.bound_tick = self.stats["ticks"]
+            self.history.append(
+                {"event": "spawn", "agent": s.agent_id, "task": task, "task_truncated": truncated}
+            )
         return s
 
     # ------------------------------------------------------------------
@@ -1340,32 +1377,36 @@ class CortexEngine:
 
     # ------------------------------------------------------------------
     def _merge_side(self, s: AgentView, thought: str):
-        ids = self.tok.encode(thought)[-self.inject_tokens:]
-        ids = ids + [self.tok.pad_id] * (self.inject_tokens - len(ids))
-        dev = self.device
-        toks = torch.tensor([ids] * self.n_main, dtype=torch.int32, device=dev)
-        vpos = torch.tensor([m.position for m in self.mains], dtype=torch.int32, device=dev)  # virtual index
-        lane_mask = torch.arange(self.n_main, device=dev) == s.parent_lane
-        st = self.state
-        _, accept, score = injection.merge_thought(
-            self._params, self.cfg, st.main_caches, st.main_hidden, toks, vpos, lane_mask, self.theta,
-        )
-        self._deactivate_side(s.lane)
-        self.stats["aux_dispatches"] += 2
-        decision = torch.stack([accept.float(), score]).cpu()  # drain-time sync
-        self.stats["host_syncs"] += 1
-        self.history.append({
-            "event": "merge",
-            "agent": s.agent_id,
-            "accepted": bool(decision[0, s.parent_lane]),
-            "gate_score": float(decision[1, s.parent_lane]),
-            "thought": thought[:80],
-        })
-        self.router.reset(s.agent_id)
-        self.prism.release(s.agent_id)
-        self.registry.release(s.agent_id)
-        self._decoders.pop(s.agent_id, None)
-        s.active = False
+        with trace.span("engine.merge", parent=self.mains[s.parent_lane].agent_id, agent=s.agent_id) as sp:
+            ids = self.tok.encode(thought)[-self.inject_tokens:]
+            ids = ids + [self.tok.pad_id] * (self.inject_tokens - len(ids))
+            dev = self.device
+            toks = torch.tensor([ids] * self.n_main, dtype=torch.int32, device=dev)
+            vpos = torch.tensor([m.position for m in self.mains], dtype=torch.int32, device=dev)  # virtual index
+            lane_mask = torch.arange(self.n_main, device=dev) == s.parent_lane
+            st = self.state
+            _, accept, score = injection.merge_thought(
+                self._params, self.cfg, st.main_caches, st.main_hidden, toks, vpos, lane_mask, self.theta,
+            )
+            self._deactivate_side(s.lane)
+            self.stats["aux_dispatches"] += 2
+            with trace.span("merge.sync"):
+                decision = torch.stack([accept.float(), score]).cpu()  # drain-time sync
+            self.stats["host_syncs"] += 1
+            accepted = bool(decision[0, s.parent_lane])
+            sp.set(accepted=accepted)
+            self.history.append({
+                "event": "merge",
+                "agent": s.agent_id,
+                "accepted": accepted,
+                "gate_score": float(decision[1, s.parent_lane]),
+                "thought": thought[:80],
+            })
+            self.router.reset(s.agent_id)
+            self.prism.release(s.agent_id)
+            self.registry.release(s.agent_id)
+            self._decoders.pop(s.agent_id, None)
+            s.active = False
 
     # ------------------------------------------------------------------
     def memory_report(self) -> dict:

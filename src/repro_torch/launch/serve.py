@@ -37,12 +37,20 @@ hang:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --cold-dir /tmp/cold
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --cold-dir /tmp/cold --recover
+
+Tracing: ``--trace-out PATH`` turns the port's tracer on (``repro_torch.trace``)
+and writes its spans, the front end's and the engine's down to each layer's
+attention in decode, as Chrome trace JSON to PATH at exit (Perfetto and
+``chrome://tracing`` open it):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --trace-out /tmp/serve_trace.json
 """
 from __future__ import annotations
 
 import argparse
 import threading
 
+from repro_torch import trace
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.engine import CortexEngine
 from repro_torch.core.prism import Prism
@@ -164,10 +172,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--recover", action="store_true",
                     help="rebuild the cold tier from --cold-dir and re-adopt "
                          "the hibernated agents found there before serving")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="trace the front end and the engine (repro_torch.trace) and "
+                         "write the spans to PATH as Chrome trace JSON at exit")
     args = ap.parse_args(argv)
     if args.recover and not args.cold_dir:
         ap.error("--recover requires --cold-dir")
+    if args.trace_out:
+        trace.clear()
+        trace.enable()
+    try:
+        return _serve(args)
+    finally:
+        if args.trace_out:
+            trace.disable()
+            n = trace.export_chrome(args.trace_out)
+            print(f"trace: {n} spans written to {args.trace_out}")
 
+
+def _serve(args) -> dict:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     params = model_lib.init_params(cfg, seed=0, device=device)
@@ -258,7 +281,9 @@ def main(argv=None) -> dict:
               f"{srep['stat_worker_respawns']} worker respawns; "
               f"engine: {engine.stats['wake_failures']} wake failures, "
               f"{engine.stats['lost_agents']} lost, "
-              f"{engine.stats['recoveries']} recoveries")
+              f"{engine.stats['recoveries']} recoveries, "
+              f"{engine.stats['spawns']} spawns, "
+              f"{engine.stats['spawns_dropped']} spawns dropped (no free side lane)")
     return m
 
 

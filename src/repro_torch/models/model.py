@@ -22,6 +22,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import trace
 from repro_torch.core import synapse as synapse_lib
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, cache as cache_lib, mamba2, mla, moe, rwkv6
@@ -582,7 +583,9 @@ def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, 
             p_layer, cache = _gathered(_layer(pg, i)), layer_cache(cg, i)
             if grp.kind == "attn":
                 h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-                x = _radd(x, _attn_decode(p_layer["attn"], cfg, spec, h, cache, positions))
+                with trace.span("decode.attn", layer=i):
+                    att = _attn_decode(p_layer["attn"], cfg, spec, h, cache, positions)
+                x = _radd(x, att)
                 h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
                 y = moe.moe_forward(p_layer["mlp"], cfg, h)[0] if grp.mlp == "moe" else swiglu(p_layer["mlp"], h)
                 x = _radd(x, y)
@@ -602,7 +605,9 @@ def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, 
         if seg.shared_after >= 0:
             sp = _gathered(params["shared_attn"])
             h = rms_norm(x, sp["ln1"], cfg.norm_eps)
-            x = _radd(x, _attn_decode(sp["attn"], cfg, spec, h, layer_cache(caches.shared, seg.shared_after), positions))
+            with trace.span("decode.attn", shared=seg.shared_after):
+                att = _attn_decode(sp["attn"], cfg, spec, h, layer_cache(caches.shared, seg.shared_after), positions)
+            x = _radd(x, att)
             h = rms_norm(x, sp["ln2"], cfg.norm_eps)
             x = _radd(x, swiglu(sp["mlp"], h))
     hidden = rms_norm(x[:, 0, :], params["final_norm"], cfg.norm_eps)

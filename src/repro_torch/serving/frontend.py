@@ -33,6 +33,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from repro_torch import trace
 from repro_torch.core.engine import CortexEngine
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.server import BatchServer
@@ -484,16 +485,20 @@ class ServingFrontend:
             raise BackendFailed(f"the backend failed: {self.failed}")
         self._pump_thread = threading.current_thread()
         try:
-            if self._mode == "batch":
-                before = self.backend.stats["steps"]
-                self.backend.run_until_done(
-                    max_ticks=ticks if ticks is not None else 256, pipeline=pipeline
-                )
-                return max(0, self.backend.stats["steps"] - before)
-            eng = self.backend
-            before = eng.stats["ticks"]
-            eng.run(ticks if ticks is not None else 8 * eng.sync_every)
-            return max(0, eng.stats["ticks"] - before)
+            with trace.span("frontend.step") as sp:
+                if self._mode == "batch":
+                    before = self.backend.stats["steps"]
+                    self.backend.run_until_done(
+                        max_ticks=ticks if ticks is not None else 256, pipeline=pipeline
+                    )
+                    done = max(0, self.backend.stats["steps"] - before)
+                else:
+                    eng = self.backend
+                    before = eng.stats["ticks"]
+                    eng.run(ticks if ticks is not None else 8 * eng.sync_every)
+                    done = max(0, eng.stats["ticks"] - before)
+                sp.set(ticks=done)
+            return done
         except BaseException as e:
             self.fail(f"{type(e).__name__}: {e}")
             raise
@@ -635,23 +640,25 @@ class ServingFrontend:
                 req.t_admit = self.clock()
                 req.status = "running"
                 self.live[aid] = req
-                eng.submit(req.prompt, lane=lane, sampling=req.sampling,
-                           agent_id=aid)
+                with trace.span("frontend.admit", request=req.rid):
+                    eng.submit(req.prompt, lane=lane, sampling=req.sampling,
+                               agent_id=aid)
             did += 1
         return did
 
     def _retire_engine_req(self, req: FrontRequest) -> None:
         eng = self.backend
-        rec = eng.registry.get(req.backend_id)
-        view = eng.mains[rec.lane]
-        eng.retire_main(rec.lane)  # flushes the decoder into view.text
-        # deliver the flush tail (text beyond what the taps streamed):
-        # stream text ends bitwise equal to the final decode
-        prompt_chars = len(req.prompt)
-        tail = view.text[prompt_chars + req.streamed_chars:]
-        if tail:
-            req.stream._push(tail)
-        self._finish(req, "cancelled" if req.cancel_requested else "ok")
+        with trace.span("frontend.retire", request=req.rid):
+            rec = eng.registry.get(req.backend_id)
+            view = eng.mains[rec.lane]
+            eng.retire_main(rec.lane)  # flushes the decoder into view.text
+            # deliver the flush tail (text beyond what the taps streamed):
+            # stream text ends bitwise equal to the final decode
+            prompt_chars = len(req.prompt)
+            tail = view.text[prompt_chars + req.streamed_chars:]
+            if tail:
+                req.stream._push(tail)
+            self._finish(req, "cancelled" if req.cancel_requested else "ok")
 
     def _engine_tap(self, view, chunk: str, toks) -> None:
         req = self.live.get(view.agent_id)
