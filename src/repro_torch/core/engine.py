@@ -33,6 +33,12 @@ plane: UTF-8 decoding, the router, spawns and merges.
   every layer at once through ONE ``landmark_score`` launch;
 * merge = Validation Gate (§3.5) + Referential Injection (§3.6) in one step
   (``injection.merge_thought``).
+* CUDA GRAPHS: on the card, with no lane group and layer kinds proven
+  capture-safe, each tick replays CUDA graphs captured from the same eager
+  tick, broken only at each ``synapse_attention`` call, which its wrapper
+  still launches (``core/tick_graphs.py``); everywhere else the tick runs
+  eagerly. ``stats`` counts ``graph_ticks``, ``eager_ticks`` and
+  ``graph_captures``.
 * Serving hooks: ``stream_tap(view, chunk, toks)`` fires in the drain
   post-processing for every lane that received tokens; ``admission_hook``
   runs in :meth:`CortexEngine._boundary_ops`, at window boundaries with
@@ -75,6 +81,7 @@ as one host sync.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 
 import torch
@@ -82,6 +89,7 @@ import torch
 from repro_torch import trace
 from repro_torch.core import injection
 from repro_torch.core import synapse as synapse_lib
+from repro_torch.core import tick_graphs
 from repro_torch.core.prism import Prism, tree_bytes
 from repro_torch.core.router import CortexRouter
 from repro_torch.data.tokenizer import ByteTokenizer
@@ -216,7 +224,7 @@ def gather_main_lane(st: TickState, lane: int) -> dict:
 
 
 def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec, side_spec,
-             step_sides: bool, use_filters: bool, any_greedy: bool):
+             step_sides: bool, use_filters: bool, any_greedy: bool, graphs=None) -> str:
     """One scheduler tick on the device, in place: river decode, side
     decode (synapse caches, the ``synapse_attention`` kernel), per-lane
     sampling, ring column ``cursor``. Reads no device value on the host.
@@ -224,56 +232,76 @@ def one_tick(params, st: TickState, cursor: int, *, cfg: ModelConfig, main_spec,
     Inactive lanes decode garbage harmlessly (their cursors are frozen and
     their caches are rewritten on admission). ``step_sides=False`` is the
     river-only tick, used while no stream is live.
+
+    ``graphs`` (a :class:`~repro_torch.core.tick_graphs.TickGraphs`): the
+    same tick, issued from CUDA graphs captured for these flags (broken at
+    each ``synapse_attention`` call, which stays eager), or captured into
+    them. Returns how it was issued: "eager", "capture" or "replay".
     """
+    with trace.span("engine.tick"):
+        body = functools.partial(_tick_body, params, st, cfg=cfg, main_spec=main_spec, side_spec=side_spec,
+                                 step_sides=step_sides, use_filters=use_filters, any_greedy=any_greedy)
+        if graphs is None:
+            body(cursor, None)
+            return "eager"
+        gens = [g for g in (st.gen, st.side_gen) if g is not None]
+        return graphs.tick((step_sides, use_filters, any_greedy), cursor, body, gens)
+
+
+def _tick_body(params, st: TickState, cursor, cut, *, cfg: ModelConfig, main_spec, side_spec,
+               step_sides: bool, use_filters: bool, any_greedy: bool):
+    """:func:`one_tick`'s work; ``cut`` (a capture's) is called where the
+    river's decode ends, and ``cursor`` may be a device scalar."""
     m_act, s_act = st.main_active, st.side_active
     M = m_act.shape[0]
-    with trace.span("engine.tick"):
-        with trace.span("tick.river"):
-            logits_m, hidden_m, _ = model_lib.decode_step(
-                params, cfg, {"tokens": st.main_tok, "positions": st.main_pos}, st.main_caches, spec=main_spec,
+    with trace.span("tick.river"):
+        logits_m, hidden_m, _ = model_lib.decode_step(
+            params, cfg, {"tokens": st.main_tok, "positions": st.main_pos}, st.main_caches, spec=main_spec,
+        )
+    if cut is not None:
+        cut()
+    if step_sides:
+        with trace.span("tick.side"):
+            # teacher-force the on-device task prompt, then free-run from
+            # the last sampled token; the sampled token counts from the
+            # last forced step on
+            forced = st.side_step < st.side_plen
+            pidx = torch.clamp(st.side_step, 0, st.side_prompt.shape[1] - 1).long()
+            prompt_tok = torch.gather(st.side_prompt, 1, pidx[:, None])[:, 0]
+            zero = torch.zeros_like(st.side_tok)
+            in_tok = torch.where(s_act, torch.where(forced, prompt_tok, st.side_tok), zero)
+            in_pos = torch.where(s_act, st.side_pos, zero)
+            logits_s, hidden_s, _ = model_lib.decode_step(
+                params, cfg, {"tokens": in_tok, "positions": in_pos}, st.side_caches, spec=side_spec,
             )
-        if step_sides:
-            with trace.span("tick.side"):
-                # teacher-force the on-device task prompt, then free-run from
-                # the last sampled token; the sampled token counts from the
-                # last forced step on
-                forced = st.side_step < st.side_plen
-                pidx = torch.clamp(st.side_step, 0, st.side_prompt.shape[1] - 1).long()
-                prompt_tok = torch.gather(st.side_prompt, 1, pidx[:, None])[:, 0]
-                zero = torch.zeros_like(st.side_tok)
-                in_tok = torch.where(s_act, torch.where(forced, prompt_tok, st.side_tok), zero)
-                in_pos = torch.where(s_act, st.side_pos, zero)
-                logits_s, hidden_s, _ = model_lib.decode_step(
-                    params, cfg, {"tokens": in_tok, "positions": in_pos}, st.side_caches, spec=side_spec,
-                )
-        with trace.span("tick.sample"):
-            if not step_sides:
-                samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters,
-                                      any_greedy=any_greedy)
-            elif st.side_gen is None:
-                samp = sample_lanes(
-                    st.gen, torch.cat([logits_m, logits_s]), cat_lanes(st.main_samp, st.side_samp),
-                    use_filters=use_filters, any_greedy=any_greedy,
-                )
-                samp_m, samp_s = samp[:M], samp[M:]
-            else:
-                samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters,
-                                      any_greedy=any_greedy)
-                samp_s = sample_lanes(st.side_gen, logits_s, st.side_samp, use_filters=use_filters,
-                                      any_greedy=any_greedy)
-        with trace.span("tick.commit"):
-            ring_append(st.main_ring, torch.where(m_act, samp_m, torch.full_like(samp_m, -1)), cursor)
-            st.main_tok.copy_(torch.where(m_act, samp_m, st.main_tok))
-            st.main_pos.add_(m_act.to(torch.int32))
-            st.main_hidden.copy_(hidden_m.float())
-            if not step_sides:
-                return
-            keep = s_act & (st.side_step >= st.side_plen - 1)
-            ring_append(st.side_ring, torch.where(keep, samp_s, torch.full_like(samp_s, -1)), cursor)
-            st.side_tok.copy_(torch.where(keep, samp_s, st.side_tok))
-            st.side_pos.add_(s_act.to(torch.int32))
-            st.side_step.add_(s_act.to(torch.int32))
-            st.side_hidden.copy_(hidden_s.float())
+    with trace.span("tick.sample"):
+        if not step_sides:
+            samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters,
+                                  any_greedy=any_greedy)
+        elif st.side_gen is None:
+            samp = sample_lanes(
+                st.gen, torch.cat([logits_m, logits_s]), cat_lanes(st.main_samp, st.side_samp),
+                use_filters=use_filters, any_greedy=any_greedy,
+            )
+            samp_m, samp_s = samp[:M], samp[M:]
+        else:
+            samp_m = sample_lanes(st.gen, logits_m, st.main_samp, use_filters=use_filters,
+                                  any_greedy=any_greedy)
+            samp_s = sample_lanes(st.side_gen, logits_s, st.side_samp, use_filters=use_filters,
+                                  any_greedy=any_greedy)
+    with trace.span("tick.commit"):
+        ring_append(st.main_ring, torch.where(m_act, samp_m, torch.full_like(samp_m, -1)), cursor)
+        st.main_tok.copy_(torch.where(m_act, samp_m, st.main_tok))
+        st.main_pos.add_(m_act.to(torch.int32))
+        st.main_hidden.copy_(hidden_m.float())
+        if not step_sides:
+            return
+        keep = s_act & (st.side_step >= st.side_plen - 1)
+        ring_append(st.side_ring, torch.where(keep, samp_s, torch.full_like(samp_s, -1)), cursor)
+        st.side_tok.copy_(torch.where(keep, samp_s, st.side_tok))
+        st.side_pos.add_(s_act.to(torch.int32))
+        st.side_step.add_(s_act.to(torch.int32))
+        st.side_hidden.copy_(hidden_s.float())
 
 
 # byte values the conservative drain gate inspects on the raw token rings
@@ -492,6 +520,10 @@ class CortexEngine:
             # side lanes decoded, summed over the ticks that step sides, and
             # the live ones among them (the rest decode garbage harmlessly)
             "side_lane_ticks": 0, "live_side_lane_ticks": 0,
+            # ticks issued from CUDA graphs (replayed, or captured and run)
+            # and eagerly, and the captures (a key's first, or anew after a
+            # rebound state)
+            "graph_ticks": 0, "eager_ticks": 0, "graph_captures": 0,
         }
         if self.mesh is not None:
             self.stats["ring_gathers"] = 0  # the all-gathers of the side rings: one per drain
@@ -516,6 +548,10 @@ class CortexEngine:
         self._ring_host = torch.empty(rows, dtype=torch.int32, pin_memory=on_card)
         self._ring_event = torch.cuda.Event() if on_card else None
         self._prefetched = False
+        # on the card, with no lane group and layer kinds proven capture-safe,
+        # ticks replay from CUDA graphs (core/tick_graphs.py); None: eager
+        self._graphs = (tick_graphs.TickGraphs(self.device)
+                        if tick_graphs.engages(cfg, self.side_spec, self.device, self.mesh) else None)
 
     @property
     def lane_mesh_shape(self) -> tuple[int, ...] | None:
@@ -674,13 +710,17 @@ class CortexEngine:
         if step_sides:
             self.stats["side_lane_ticks"] += n * self._lanes.block
             self.stats["live_side_lane_ticks"] += n * live
+        if self._graphs is not None:
+            self._graphs.check(tick_graphs.fingerprint(self.state, self._params))
         with trace.span("engine.dispatch", ticks=n, rivers=sum(m.active for m in self.mains), sides=live):
             for i in range(n):
-                one_tick(
+                how = one_tick(
                     self._params, self.state, self._pending + i, cfg=self.cfg,
                     main_spec=self.main_spec, side_spec=self.side_spec, step_sides=step_sides,
-                    use_filters=use_filters, any_greedy=any_greedy,
+                    use_filters=use_filters, any_greedy=any_greedy, graphs=self._graphs,
                 )
+                self.stats["eager_ticks" if how == "eager" else "graph_ticks"] += 1
+                self.stats["graph_captures"] += how == "capture"
         self.stats["ticks"] += n
         self.stats["tick_dispatches"] += 1
         if n > 1:

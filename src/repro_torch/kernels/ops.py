@@ -7,6 +7,9 @@ a CPU tensor each wrapper runs its plain version.
 """
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
+
 import torch
 
 from repro_torch.kernels import landmark_score as _ls
@@ -15,6 +18,10 @@ from repro_torch.kernels.build import build_all
 from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (finite mask shared with the kernels and the sampler)
 
 KERNELS = {"synapse_attention": _sa.KERNEL, "landmark_score": _ls.KERNEL}
+
+# where synapse_attend's one-launch path goes instead, inside an
+# ``attend_break`` scope (a tick's graph capture cuts there)
+_BREAK: ContextVar = ContextVar("synapse_attend_break", default=None)
 
 
 def build_kernels() -> dict[str, str]:
@@ -32,16 +39,34 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def ring_append(ring, vals, cursor: int):
+def ring_append(ring, vals, cursor):
     """In place: ring [B, R] column ``cursor`` <- vals [B]. The cursor is the
-    host's count of ticks since the last drain, so no device value is read."""
-    ring[:, cursor] = vals.to(ring.dtype)
+    host's count of ticks since the last drain, so no device value is read:
+    an int, or that int in a [1] int64 tensor on the ring's device, which a
+    captured tick's graph reads when it is replayed."""
+    if isinstance(cursor, torch.Tensor):
+        ring.index_copy_(1, cursor, vals.to(ring.dtype)[:, None])
+    else:
+        ring[:, cursor] = vals.to(ring.dtype)
 
 
-def synapse_attention(q, keys, values, valid, *, scale: float | None = None):
+def synapse_attention(q, keys, values, valid, *, scale: float | None = None, out=None, mass=None):
     """q [B,H,D]; keys/values [B,T,Hkv,D]; valid [B,T] bool ->
-    (out [B,H,D], mass [B,T] f32). ``scale`` defaults to 1/sqrt(D)."""
-    return _sa.synapse_attention(q, keys, values, valid, scale=scale)
+    (out [B,H,D], mass [B,T] f32). ``scale`` defaults to 1/sqrt(D).
+    ``out``/``mass``: tensors of those shapes to write into, returned."""
+    return _sa.synapse_attention(q, keys, values, valid, scale=scale, out=out, mass=mass)
+
+
+@contextlib.contextmanager
+def attend_break(fn):
+    """Within the scope, :func:`synapse_attend`'s one-launch path calls
+    ``fn(q, pieces, valids, scale)`` in its place, which returns what that
+    path returns; restores the previous break on exit, on error too."""
+    token = _BREAK.set(fn)
+    try:
+        yield
+    finally:
+        _BREAK.reset(token)
 
 
 def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None):
@@ -50,7 +75,8 @@ def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None
     enclosing ``synapse_sharded.token_sharding`` scope) or
     ``policy.attend_impl == "piece"`` goes to ``synapse_sharded.piece_attend``;
     anything else concatenates the pieces, makes ONE
-    :func:`synapse_attention` call and splits the mass back per piece. With
+    :func:`synapse_attention` call and splits the mass back per piece (or,
+    inside an :func:`attend_break` scope, hands them to the break). With
     no axis both are that one launch. Returns (out [B,H,D], masses — one
     [B,T_i] per piece)."""
     from repro_torch.core import synapse_sharded as sharded  # deferred: core imports this module
@@ -63,6 +89,9 @@ def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if ctx.axis is not None or getattr(policy, "attend_impl", "kernel") == "piece":
         return sharded.piece_attend(q, pieces, valids, scale, ctx=ctx)
+    brk = _BREAK.get()
+    if brk is not None:
+        return brk(q, pieces, valids, scale)
     sizes = [k.shape[1] for k, _ in pieces]
     k_all = torch.cat([k for k, _ in pieces], dim=1)
     v_all = torch.cat([v for _, v in pieces], dim=1)

@@ -211,30 +211,45 @@ def _check(q, keys, values, valid):
             raise ValueError(f"synapse_attention: {name} must start at a 16-byte aligned address")
 
 
-def synapse_attention(q, keys, values, valid, *, scale: float | None = None):
+def _check_outputs(q, keys, out, mass):
+    B, T = q.shape[0], keys.shape[1]
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"synapse_attention: out must be a contiguous {q.dtype} {tuple(q.shape)} on {q.device}")
+    if mass is not None and (mass.shape != (B, T) or mass.dtype != torch.float32 or mass.device != q.device
+                             or not mass.is_contiguous()):
+        raise ValueError(f"synapse_attention: mass must be a contiguous float32 {(B, T)} on {q.device}")
+
+
+def synapse_attention(q, keys, values, valid, *, scale: float | None = None, out=None, mass=None):
     """q: [B,H,D]; keys/values: [B,T,Hkv,D]; valid: [B,T] bool.
 
     Returns (out [B,H,D] in q's dtype, mass [B,T] f32). ``scale`` defaults
-    to 1/sqrt(D).
+    to 1/sqrt(D). ``out``/``mass``, where given, are written and returned
+    in place of new tensors (a captured tick's static outputs).
     """
     B, H, D = q.shape
     scale = 1.0 / (D ** 0.5) if scale is None else scale
-    if q.device.type == "cpu":
-        return synapse_attention_ref(q, keys, values, valid, scale=scale)
-    if q.device.type == "meta":  # the dry run: shapes and FLOP counts, no launch
-        return synapse_attention_ref(q, keys, values, valid, scale=scale)
+    if q.device.type in ("cpu", "meta"):  # meta: the dry run's shapes and FLOP counts, no launch
+        o, m = synapse_attention_ref(q, keys, values, valid, scale=scale)
+        if out is None and mass is None:
+            return o, m
+        _check_outputs(q, keys, out, mass)
+        return (o if out is None else out.copy_(o)), (m if mass is None else mass.copy_(m))
     _check(q, keys, values, valid)
+    _check_outputs(q, keys, out, mass)
     T, Hkv = keys.shape[1], keys.shape[2]
-    return launch(card_plan(q.device, B, T, H, Hkv, D, q.element_size()), q, keys, values, valid, scale)
+    return launch(card_plan(q.device, B, T, H, Hkv, D, q.element_size()), q, keys, values, valid, scale,
+                  out=out, mass=mass)
 
 
-def launch(plan: LaunchPlan, q, keys, values, valid, scale: float):
+def launch(plan: LaunchPlan, q, keys, values, valid, scale: float, *, out=None, mass=None):
     """One launch of the kernel under ``plan`` on inputs that passed the
-    wrapper's checks: allocates out, mass and, where the plan sums the mass
-    over kv heads in device memory, its workspace."""
+    wrapper's checks: allocates out and mass unless given and, where the
+    plan sums the mass over kv heads in device memory, its workspace."""
     (B, H, D), T, Hkv = q.shape, keys.shape[1], keys.shape[2]
-    out = torch.empty_like(q)
-    mass = torch.empty((B, T), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q) if out is None else out
+    mass = torch.empty((B, T), dtype=torch.float32, device=q.device) if mass is None else mass
     parts = torch.empty((B, Hkv, T), dtype=torch.float32, device=q.device) if plan.mass_parts else None
     tickets = ticket_counters(q.device, B * plan.cluster) if plan.mass_parts else None
     KERNEL.launch(

@@ -283,7 +283,9 @@ def _serve(args) -> dict:
               f"{engine.stats['lost_agents']} lost, "
               f"{engine.stats['recoveries']} recoveries, "
               f"{engine.stats['spawns']} spawns, "
-              f"{engine.stats['spawns_dropped']} spawns dropped (no free side lane)")
+              f"{engine.stats['spawns_dropped']} spawns dropped (no free side lane), "
+              f"{engine.stats['graph_ticks']} graph ticks, {engine.stats['eager_ticks']} eager ticks, "
+              f"{engine.stats['graph_captures']} graph captures")
     return m
 
 

@@ -730,10 +730,15 @@ def test_long_context_memory_is_constant_on_card(card):
     """The long-context example at its reduced size on the card: one
     synapse_attention launch per layer and step, memory_allocated the same
     after step 10 and after the last, the cache's bytes constant."""
+    import gc
+
     from repro_torch.examples import long_context_synapse
 
     ops.build_kernels()
     ops.reset_launches()
+    # engines of earlier tests that sync guards tied into reference cycles:
+    # freed now, not by a collection in the middle of the decode
+    gc.collect()
     out = long_context_synapse.main(["--device", "cuda"])
     assert ops.launch_counts() == {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"]}
     assert out["memory_allocated_step10"] == out["memory_allocated_last"] > 0
@@ -857,3 +862,167 @@ def test_kernel_wrappers_meta_branch_never_launches_and_cuda_does(card):
     ls.landmark_score(q, k, lm)
     torch.cuda.synchronize()
     assert (sa.KERNEL.launches, ls.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# the graphed tick (core/tick_graphs.py) at the council's lane counts on the
+# reduced Qwen2.5: bitwise the eager tick over spawns, merges, an admission
+# and a hibernate/wake; no host sync; one kernel launch per side layer; a
+# recapture after a rebound state; the peak memory of a window
+# ---------------------------------------------------------------------------
+def _council(card, dtype):
+    """(cfg, make): ``make(graphed)`` builds a council engine (4 rivers, 96
+    side lanes; greedy rivers by default, sampled sides through a top-k
+    filter), eager where ``graphed`` is False (``_graphs`` None)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving.sampler import SamplingParams
+
+    ops.build_kernels()
+    cfg = dataclasses.replace(get_config("qwen2.5-0.5b", reduced=True), compute_dtype=dtype)
+    params = tmodel.init_params(cfg, seed=0, device=card)
+
+    def make(graphed):
+        eng = CortexEngine(Prism(params, cfg, device=card), ByteTokenizer(cfg.vocab_size), n_main=4, max_side=96,
+                           main_capacity=256, inject_tokens=8, theta=-1.0, side_max_steps=12, sync_every=4,
+                           max_window=16, sampling=SamplingParams(greedy=True),
+                           side_sampling=SamplingParams(temperature=0.9, top_k=20), seed=11, device=card)
+        assert eng._graphs is not None
+        if not graphed:
+            eng._graphs = None
+        return eng
+    return cfg, make
+
+
+def _council_state(eng):
+    """Device state (cloned), the agents' streams, counts and events."""
+    st = eng.state
+    tensors = [st.rings, st.main_tok, st.main_pos, st.main_active, st.main_hidden, st.side_tok, st.side_pos,
+               st.side_active, st.side_step, st.side_hidden, *st.main_caches.tensors(), *st.side_caches.tensors()]
+    views = [(v.agent_id, v.active, tuple(v.tokens)) for v in (*eng.mains, *eng.sides)]
+    counts = {k: eng.stats[k] for k in ("ticks", "drains", "spawns", "spawns_dropped", "hibernates", "wakes",
+                                        "side_lane_ticks", "live_side_lane_ticks")}
+    return [t.clone() for t in tensors], views, counts, [e["event"] for e in eng.history]
+
+
+def _assert_same(a, b):
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+    assert a[1:] == b[1:]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graphed_council_equals_the_eager_council_bitwise(card, dtype):
+    """Rings, caches, hidden states, streams and counts after each stretch:
+    spawns and merges, an admission, a hibernate and a wake; a greedy and a
+    sampled river, sampled sides."""
+    from repro_torch.serving.sampler import SamplingParams
+
+    _, make = _council(card, dtype)
+    states = {}
+    for graphed in (True, False):
+        eng, got = make(graphed), []
+        eng.submit("calm words [TASK: look closer] more [TASK: count the stones] calm", lane=0, agent_id="r0")
+        eng.submit("a second [TASK: weigh it] river", lane=1, agent_id="r1",
+                   sampling=SamplingParams(temperature=0.8))
+        eng.run(24)
+        got.append(_council_state(eng))
+        eng.submit("a third river, admitted later [TASK: name it]", lane=2, agent_id="r2")
+        eng.run(16)
+        got.append(_council_state(eng))
+        eng.submit("a fourth and quiet river", lane=3, agent_id="r3")
+        eng.run(8)
+        eng.hibernate("r3")
+        eng.run(8)
+        eng.wake("r3", wait=True)
+        eng.run(40)
+        got.append(_council_state(eng))
+        states[graphed] = (got, dict(eng.stats))
+    (g_states, g_stats), (e_states, e_stats) = states[True], states[False]
+    assert g_stats["graph_ticks"] > 0.8 * g_stats["ticks"] and g_stats["graph_captures"] >= 2
+    assert e_stats["graph_ticks"] == 0 and e_stats["eager_ticks"] == e_stats["ticks"]
+    events = g_states[-1][3]
+    assert {"spawn", "merge", "hibernate", "wake"} <= set(events)
+    for a, b in zip(g_states, e_states):
+        _assert_same(a, b)
+
+
+def test_graphed_window_makes_no_host_sync_and_launches_the_kernel_per_side_layer(card):
+    """Warm-up, captures and replays all under set_sync_debug_mode("error");
+    a replayed side tick launches synapse_attention once per layer, through
+    its wrapper."""
+    cfg, make = _council(card, "bfloat16")
+    eng = make(True)
+    _smoke().guard_window_no_sync(eng)
+    eng.submit("calm words [TASK: look closer] more calm words", lane=0)
+    eng.submit("a second [TASK: weigh it] river", lane=1)
+    eng.run(16)
+    assert eng.stats["graph_captures"] >= 1 and any(s.active for s in eng.sides)
+    before = dict(eng.stats)
+    ops.reset_launches()
+    eng._dispatch_window(1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["synapse_attention"] == cfg.n_layers
+    assert eng.stats["graph_ticks"] == before["graph_ticks"] + 1
+    assert eng.stats["graph_captures"] == before["graph_captures"]
+    eng.drain()
+
+
+def test_a_rebound_state_tensor_recaptures_never_replays_stale(card):
+    """A tick state tensor and the river caches rebound to copies: the next
+    window recaptures, and the engine stays bitwise the eager one."""
+    from repro_torch.models import cache as cache_lib
+
+    _, make = _council(card, "bfloat16")
+    states, caps = {}, []
+    for graphed in (True, False):
+        eng = make(graphed)
+        eng.submit("calm words [TASK: look closer] more calm words", lane=0)
+        eng.run(12)
+        caps.append(eng.stats["graph_captures"])
+        eng.state.side_tok = eng.state.side_tok.clone()
+        eng.state.main_caches = eng.state.main_caches.map(lambda c: cache_lib.map_cache(torch.clone, c))
+        eng.run(12)
+        caps.append(eng.stats["graph_captures"])
+        states[graphed] = _council_state(eng)
+    assert caps[1] > caps[0] >= 1 and caps[2:] == [0, 0]
+    _assert_same(states[True], states[False])
+
+
+def test_graphed_window_peak_memory_is_the_eager_one_plus_the_static_buffers(card):
+    """max_memory_allocated over a window, above what was allocated before
+    the engine: the graphed engine's exceeds the eager one's by no more than
+    its static attend buffers and its cursor (the graphs' pool holds no live
+    tensor besides)."""
+    import gc
+
+    _, make = _council(card, "bfloat16")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks, static = {}, 0
+    for graphed in (True, False):
+        eng = make(graphed)
+        eng.submit("calm words [TASK: look closer] more calm words", lane=0)
+        eng.submit("a second [TASK: weigh it] river", lane=1)
+        eng.run(16)
+        assert any(s.active for s in eng.sides)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng._dispatch_window(eng.sync_every)
+        torch.cuda.synchronize()
+        peaks[graphed] = torch.cuda.max_memory_allocated() - base
+        eng.drain()
+        if graphed:
+            tensors = [t for b in eng._graphs._buffers.values() for t in vars(b).values()] + [eng._graphs.cursor]
+            static = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in tensors)
+            assert static > 0
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"window peak above the weights: graphed {peaks[True]} B, eager {peaks[False]} B, static {static} B")
+    assert peaks[True] <= peaks[False] + static

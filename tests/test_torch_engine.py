@@ -123,15 +123,21 @@ def test_spawn_merge_history_equal(reference, port):
 
 def test_dispatch_and_sync_accounting_equal(reference, port):
     eng, _ = port
-    # the port's own counters (the reference has none): spawns and the side
-    # lanes decoded, held to the reference's history and lane count
-    own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks"}
+    # the port's own counters (the reference has none): spawns, the side
+    # lanes decoded and how ticks were issued, held to the reference's
+    # history and lane count
+    own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks",
+           "graph_ticks", "eager_ticks", "graph_captures"}
     for key, val in eng.stats.items():
         if key not in own:
             assert val == reference.stats[key], key
     assert eng.stats["spawns"] == sum(e["event"] == "spawn" for e in reference.history) > 0
     assert eng.stats["spawns_dropped"] == 0
     assert 0 < eng.stats["live_side_lane_ticks"] <= eng.stats["side_lane_ticks"]
+    # on the CPU every dispatched tick is eager
+    hist = eng.stats["window_hist"]
+    assert eng.stats["eager_ticks"] == sum(n * c for n, c in hist.items()) > 0
+    assert eng.stats["graph_ticks"] == eng.stats["graph_captures"] == 0
     assert eng.stats["side_lane_ticks"] % KW["max_side"] == 0
     assert eng.stats["tick_dispatches"] == -(-N_TICKS // KW["sync_every"])
 

@@ -121,14 +121,19 @@ def test_engine_streams_history_and_gates_equal_jax(pair):
         if a["event"] == "merge":
             assert b["accepted"] == a["accepted"] and b["thought"] == a["thought"]
             assert abs(b["gate_score"] - a["gate_score"]) < GATE_TOL
-    # the port's own counters (the reference has none): spawns and the side
-    # lanes decoded, held to the reference's history
-    own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks"}
+    # the port's own counters (the reference has none): spawns, the side
+    # lanes decoded and how ticks were issued, held to the reference's history
+    own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks",
+           "graph_ticks", "eager_ticks", "graph_captures"}
     for key, val in eng.stats.items():
         if key not in own:
             assert val == ref.stats[key], key
     assert eng.stats["spawns"] == 2 and eng.stats["spawns_dropped"] == 0
     assert 0 < eng.stats["live_side_lane_ticks"] <= eng.stats["side_lane_ticks"]
+    # on the CPU every dispatched tick is eager
+    hist = eng.stats["window_hist"]
+    assert eng.stats["eager_ticks"] == sum(n * c for n, c in hist.items()) > 0
+    assert eng.stats["graph_ticks"] == eng.stats["graph_captures"] == 0
 
 
 def test_engine_caches_and_per_agent_bytes_equal_jax(pair):
