@@ -54,13 +54,22 @@ def load_bench(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def cell_of(bench: dict, name: str):
+def config_entry(bench: dict, cell: dict) -> dict:
+    return next(c for c in bench["configs"] if c["name"] == cell["config"])
+
+
+def cell_of(bench: dict, name: str, root: Path = ROOT):
     cell = next((w for w in bench["workloads"] if w["name"] == name), None)
     if cell is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
-    conf_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    conf = json.loads((ROOT / conf_entry["file"]).read_text())
+    conf = json.loads((root / config_entry(bench, cell)["file"]).read_text())
     return cell, conf, load_mix(cell["traffic"])
+
+
+def decode_count_of(bench: dict, cell: dict, conf: dict) -> yardstick.DecodeCount:
+    """A decode token's work in the cell's configuration, counted from its
+    file's ``published`` keys and refused where its entry lists a cut."""
+    return yardstick.decode_count(conf["published"], config_entry(bench, cell)["reduced"])
 
 
 def reference_of(conf: dict):
@@ -279,10 +288,11 @@ def is_device_work(e) -> bool:
     return not (getattr(e, "is_user_annotation", False) or getattr(e, "activity_type", None) == "gpu_user_annotation")
 
 
-def read_stretch(stretch, pr, arch: dict, log=print) -> dict:
+def read_stretch(stretch, pr, count: yardstick.DecodeCount, log=print) -> dict:
     """Device busy time, kernel time under the benchmark's ranges, the
-    bound of those calls, the decode operations of the stretch, and the
-    breakdown, from the profiler's events."""
+    bound of those calls, the decode operations of the stretch (by
+    ``count``, a decode token's work), and the breakdown, from the
+    profiler's events."""
     from torch.autograd import DeviceType
 
     t_a, t_b = stretch.t[0], stretch.t[1]
@@ -318,11 +328,12 @@ def read_stretch(stretch, pr, arch: dict, log=print) -> dict:
         # device events are found by the kernel's name
         t_dev = sum(v for k, v in by_name.items() if f"{name}_kernel" in k) * 1e-6
         out[f"{name}_bound_s"], out[f"{name}_device_s"], out[f"{name}_calls"] = bound, t_dev, len(calls)
-    # decode operations of the lanes live in each traced tick
+    # decode operations of the lanes live in each traced tick; a lane reads
+    # the same keys in each attention layer
     toks = sum(r + s for r, _, s, _ in pr.ticks)
     keys = sum(rk + sk for _, rk, _, sk in pr.ticks)
     out["decode_tokens"] = toks
-    out["decode_flops"] = yardstick.decode_flops(arch, toks, keys)
+    out["decode_flops"] = yardstick.decode_flops(count, toks, keys)
     # idle gaps named by the benchmark span open on the host at their middle
     gaps = yardstick.idle_gaps(iv, w0, w0 + wall_us)[:10]
     named = []
@@ -414,6 +425,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     if overrides:  # {"model": ..., "conf": ..., "mix": ...}: each merged over the cell's own
         conf = {**conf, **overrides.get("conf", {}), "model": {**conf["model"], **overrides.get("model", {})}}
         mix = {**mix, **overrides.get("mix", {})}
+    # before set-up: a configuration the yardstick cannot count is refused here
+    count = decode_count_of(bench, cell, conf)
     dev = torch.device(device)
     from repro_torch.core.prism import Prism
     from repro_torch.data.tokenizer import ByteTokenizer
@@ -471,7 +484,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         data.spans = {k: [b - a for a, b in v if b <= cut[0] or a >= cut[1]] for k, v in pr.spans.items()}
         data.ticks = len(data.spans.get("dispatch", []))
         if stretch and stretch.t:
-            data.stretch = read_stretch(stretch, pr, conf["model"], log=log)
+            data.stretch = read_stretch(stretch, pr, count, log=log)
             inside = {k: sum(1 for a, b in v if a >= cut[0] and b <= cut[1]) for k, v in pr.spans.items()}
             log(f"stretch: {data.stretch['window_s']:.2f} s from {stretch.t[0] - t0:.2f} s into the window, "
                 f"{len(pr.ticks)} ticks, {data.stretch['decode_tokens']} decode tokens, spans {inside}, "
