@@ -188,6 +188,12 @@ SYN_ZAMBA = (MAIN["max_side"], 32, 32, 64, 64 + 64 + 16)
 LM_ZAMBA = (6, 32, 32, 64, MAIN["main_capacity"])
 FAMILY_SHAPES = [SYN_ZAMBA, LM_ZAMBA, (8, 32, 4, 128, 144), (48, 32, 4, 128, 1024), (8, 32, 8, 128, 144),
                  (36, 32, 8, 128, 1024), (8, 64, 8, 128, 144), (8, 64, 8, 128, 1024)]
+# Zamba2-7B's shared blocks (32 heads of 224) at the benchmark's council:
+# the side decode of 96 lanes, and a spawn's density sweep over the 13
+# invocations of one river of 2,048 slots (logits mode and a landmarked
+# sweep do not fit this shape in shared memory)
+SYN_Z7 = (96, 32, 32, 224, 64 + 64 + 16)
+LM_Z7 = (13, 32, 32, 224, 2048)
 # long key sets: qwen2-vl's and qwen1.5's heads at a side decode of T =
 # 4096, and 32 heads of 64 at T = 16384 (synapse_attention is timed at the
 # first)
@@ -335,6 +341,26 @@ def landmark_live_keys(plan, valid) -> int:
         for t0 in range(0, b - a, ck):
             keys += int(live[:, t0:t0 + ck].any(dim=1).sum()) * min(ck, b - a - t0)
     return keys
+
+
+def synapse_row(dev, shape, inputs) -> dict:
+    """Times of ``synapse_attention`` at ``shape`` in bf16, L2 flushed: the
+    kernel, its plain version and SDPA (which gives no per-key mass: a
+    partial yardstick), with the bound of the call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import synapse_attention as sa
+
+    B, H, Hkv, D, T = shape
+    q, k, v, valid, _ = inputs(shape, torch.bfloat16)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    return dict(
+        ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
+        plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
+        shape=list(shape), plan=str(sa.card_plan(dev, B, T, H, Hkv, D, 2)))
 
 
 def landmark_row(dev, shape, *, density: bool, inputs, valid=None) -> dict:
@@ -522,30 +548,18 @@ def check_kernels(dev):
         earlier_ms=EARLIER_MS["landmark_score"],
         **landmark_row(dev, LM_MAIN, density=False, inputs=inputs),
     )
-    def synapse_row(shape):
-        B, H, Hkv, D, T = shape
-        q, k, v, valid, _ = inputs(shape, torch.bfloat16)
-        qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        mask = valid[:, None, None, :]
-        return dict(
-            ms=time_ms(lambda: sa.synapse_attention(q, k, v, valid)),
-            plain_ms=time_ms(lambda: ref.synapse_attention_ref(q, k, v, valid)),
-            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-            **bound(q.numel() * 2 * 2 + 2 * k.numel() * 2 + valid.numel() + B * T * 4, 4 * B * H * T * D),
-            shape=list(shape), plan=str(sa.card_plan(dev, B, T, H, Hkv, D, 2)))
-
     # the same at zamba2's shapes (its shared block: H = Hkv = 32, D = 64), at
     # a long key set (qwen2-vl's and qwen1.5's heads), at qwen3-8b's one-lane
     # side decode (the long-context example's), and at the long_500k decode
     # with qwen3-8b's and with qwen1.5-110b's heads
     for sub, shape in (("zamba2", SYN_ZAMBA), ("long_t", SYN_LONG), ("qwen3_8b", SYN_QWEN3),
-                       ("long500k_qwen3_8b", SYN_LONG500K[0]), ("long500k_qwen1_5", SYN_LONG500K[1])):
-        recs["synapse_attention"][sub] = synapse_row(shape)
+                       ("long500k_qwen3_8b", SYN_LONG500K[0]), ("long500k_qwen1_5", SYN_LONG500K[1]),
+                       ("zamba2_7b", SYN_Z7)):
+        recs["synapse_attention"][sub] = synapse_row(dev, shape, inputs)
     # landmark_score at zamba2's spawn (logits mode), and the density mode at
-    # both spawns with every key valid
+    # both spawns and at Zamba2-7B's with every key valid
     for sub, shape, density in (("zamba2", LM_ZAMBA, False), ("density", LM_MAIN, True),
-                                ("zamba2_density", LM_ZAMBA, True)):
+                                ("zamba2_density", LM_ZAMBA, True), ("zamba2_7b_density", LM_Z7, True)):
         recs["landmark_score"][sub] = landmark_row(dev, shape, density=density, inputs=inputs)
     for r in recs.values():
         log("kernel " + json.dumps(r))
@@ -650,10 +664,10 @@ def drive_main_path(card: str):
     spawn_valid = []
     kernel_density = synapse_lib.kernel_density
 
-    def first_spawn(q, keys, valid):  # only the first spawn goes through here
+    def first_spawn(q, keys, valid, **kw):  # only the first spawn goes through here
         spawn_valid.append(valid)
         synapse_lib.kernel_density = kernel_density
-        return kernel_density(q, keys, valid)
+        return kernel_density(q, keys, valid, **kw)
 
     synapse_lib.kernel_density = first_spawn
     try:

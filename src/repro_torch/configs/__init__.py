@@ -1,7 +1,8 @@
 """Architecture registry of the port: one module per architecture, the
 same ids and configs as the JAX package's ``repro.configs``.
 
-``get_config("qwen3-8b")`` returns the full config,
+``PORT_ARCHS`` holds the port's own configs, which ``get_config`` reads
+too. ``get_config("qwen3-8b")`` returns the full config,
 ``get_config("qwen3-8b", reduced=True)`` the CPU smoke variant.
 """
 from __future__ import annotations
@@ -26,11 +27,19 @@ ARCHS = {
     "qwen2.5-0.5b": "qwen25_0p5b",
 }
 
+# configs of the port alone (the reference has no such architecture)
+PORT_ARCHS = {
+    # Zamba2-7B-Instruct as published: two alternating shared blocks on
+    # [stream; embeddings], grouped Mamba2
+    "zamba2-7b": "zamba2_7b",
+}
+
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+    table = {**ARCHS, **PORT_ARCHS}
+    if arch not in table:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(table)}")
+    mod = importlib.import_module(f"repro_torch.configs.{table[arch]}")
     cfg: ModelConfig = mod.CONFIG
     return cfg.reduced() if reduced else cfg
 

@@ -524,6 +524,10 @@ class CortexEngine:
             # and eagerly, and the captures (a key's first, or anew after a
             # rebound state)
             "graph_ticks": 0, "eager_ticks": 0, "graph_captures": 0,
+            # bytes the lanes' recurrent states and attention caches hold
+            # (set below), and the state bytes copied at spawns and
+            # blended at merges
+            "recurrent_state_bytes": 0, "attn_cache_bytes": 0, "state_copy_bytes": 0, "state_blend_bytes": 0,
         }
         if self.mesh is not None:
             self.stats["ring_gathers"] = 0  # the all-gathers of the side rings: one per drain
@@ -538,6 +542,11 @@ class CortexEngine:
             side_sampling=self.side_sampling, seed=seed, device=self.device,
             side_seed=None if self.mesh is None else seed * 1_000_003 + 1 + self.mesh.rank,
         )
+        held = [model_lib.held_bytes(c) for c in (self.state.main_caches, self.state.side_caches)]
+        self.stats["recurrent_state_bytes"] = sum(r for r, _ in held)
+        self.stats["attn_cache_bytes"] = sum(a for _, a in held)
+        # one river lane's recurrent state: what a spawn copies, a merge blends
+        self._lane_state_bytes = held[0][0] // n_main
         # on a lane group, every rank's rings gathered at a fixed address
         rows = (n_main + max_side, self.max_window)
         self._ring_all = None if self.mesh is None else torch.full(rows, -1, dtype=torch.int32, device=self.device)
@@ -1055,7 +1064,11 @@ class CortexEngine:
         with trace.span("spawn.compress"):
             comp = spawn_caches(self.cfg, model_lib.lane_caches(st.main_caches, parent_lane), self.side_spec)
         with trace.span("spawn.write"):
-            model_lib.write_lane(st.side_caches, comp, i)
+            model_lib.write_lane(st.side_caches, comp, i, recurrent=False)
+        if self._lane_state_bytes:
+            with trace.span("spawn.state"):
+                model_lib.write_lane(st.side_caches, comp, i, recurrent=True)
+            self.stats["state_copy_bytes"] += self._lane_state_bytes
 
     def _spawn_task(self, parent: AgentView, task: str):
         """A river's ``[TASK: ...]`` trigger: counted in ``spawns`` when it
@@ -1430,6 +1443,7 @@ class CortexEngine:
             )
             self._deactivate_side(s.lane)
             self.stats["aux_dispatches"] += 2
+            self.stats["state_blend_bytes"] += self._lane_state_bytes
             with trace.span("merge.sync"):
                 decision = torch.stack([accept.float(), score]).cpu()  # drain-time sync
             self.stats["host_syncs"] += 1

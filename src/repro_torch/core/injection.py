@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import gate as gate_lib
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
@@ -112,7 +113,8 @@ def _inject_one(m, t, accept):
         return inject_synapse(m, t, accept)
     if isinstance(m, cache_lib.FullCache):
         return inject_full(m, t, accept)
-    return blend_state(m, t, accept)
+    with trace.span("merge.blend"):
+        return blend_state(m, t, accept)
 
 
 def inject(cfg: ModelConfig, main_caches, thought_caches, accept):

@@ -62,24 +62,25 @@ def _normed_dist(a, b):
     return torch.sqrt((diff * diff).sum(dim=-1) / d)
 
 
-def attention_density(q, keys, valid):
+def attention_density(q, keys, valid, scale: float | None = None):
     """Softmax attention mass per key, summed over heads (plain PyTorch).
 
-    q: [B, H, D]; keys: [B, T, Hkv, D]; valid: [B, T] -> [B, T] f32.
+    q: [B, H, D]; keys: [B, T, Hkv, D]; valid: [B, T] -> [B, T] f32;
+    ``scale`` defaults to 1/sqrt(D).
     """
-    _, mass = decode_attend(q, keys, torch.zeros_like(keys), valid)
+    _, mass = decode_attend(q, keys, torch.zeros_like(keys), valid, scale)
     return mass
 
 
-def kernel_density(q, keys, valid):
+def kernel_density(q, keys, valid, scale: float | None = None):
     """attention_density through the ``landmark_score`` kernel's
     density-only sweep in density mode: on the card one launch computes the
     valid-masked softmax over T and its sum over heads, and writes only
     [B,T]. With a token axis live, the plain reduction, as in the
     reference."""
     if sharded.get_shard_axis() is not None:
-        return attention_density(q, keys, valid)
-    density, _ = ops.landmark_score(q, keys, None, valid)
+        return attention_density(q, keys, valid, scale)
+    density, _ = ops.landmark_score(q, keys, None, valid, scale=scale)
     return density
 
 
@@ -135,7 +136,7 @@ def compress(
     dev = cache.k.device
     slots = torch.arange(T, device=dev)
     valid = slots[None, :] < cache.length[:, None]
-    density = kernel_density(query, cache.k, valid) if query is not None else cache.score
+    density = kernel_density(query, cache.k, valid, scale=cfg.attn_scale) if query is not None else cache.score
     idx, score, picked = select_landmarks(cache.k, valid, density, n_landmarks, policy)
     # landmarks in original position order (a stable sort, as jnp.argsort);
     # invalid picks last
@@ -242,7 +243,7 @@ def synapse_decode(
     lm_valid = torch.arange(K, device=dev)[None, :] < cache.lm_count[:, None]
     win_valid = torch.arange(W, device=dev)[None, :] < torch.clamp(cache.win_count + 1, max=W)[:, None]
     inj_valid = torch.arange(J, device=dev)[None, :] < cache.inj_count[:, None]
-    scale = 1.0 / (q1.shape[-1] ** 0.5)
+    scale = 1.0 / (q1.shape[-1] ** 0.5) if cfg.attn_scale is None else cfg.attn_scale
     out, masses = ops.synapse_attend(
         q1,
         [(cache.lm_k, cache.lm_v), (cache.win_k, cache.win_v), (cache.inj_k, cache.inj_v)],

@@ -106,7 +106,8 @@ def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, Kc: int, elem_bytes: i
     (default and at most ``MAX_CLUSTER`` in density mode, ``MAX_RANGES`` in
     logits mode) and at most T // ``MIN_KEYS``, whose grid the card holds in
     one wave; then, in density mode without landmarks, the most kv-head
-    groups (a power of two dividing Hkv) whose grid still does. A
+    groups (a power of two dividing Hkv) whose grid still does; where no
+    tile fits beside a range's rows, half as many ranges, and so on. A
     tile is about ``stage_bytes`` of keys (16 at least, a multiple of 16,
     at most 256 and at most the range); as many ring stages (up to
     ``MAX_STAGES``, at most the tiles a CTA loads) as the shared memory
@@ -161,15 +162,21 @@ def launch_plan(B: int, T: int, H: int, Hkv: int, D: int, Kc: int, elem_bytes: i
     C = 1
     while 2 * C <= min(cap, T // MIN_KEYS) and B * 2 * C <= wave(2 * C):
         C *= 2
-    HG = 1
-    while density and not Kc and Hkv % (2 * HG) == 0 and B * C * 2 * HG <= wave(C):
-        HG *= 2
-    budgets = ((TWO_PER_SM,) if B * C * HG > wave(C) // 2 else ()) + (MAX_SMEM,)
-    for budget in budgets:
-        for keep in ((True, False) if density else (False,)):
-            plan = geometry(C, HG, keep, budget)
-            if plan.stages >= 1:
-                return plan
+    # where no tile fits beside a range's rows, fewer ranges (and in
+    # density mode more kv-head groups, fewer query rows a CTA) are tried
+    while True:
+        HG = 1
+        while density and not Kc and Hkv % (2 * HG) == 0 and B * C * 2 * HG <= wave(C):
+            HG *= 2
+        budgets = ((TWO_PER_SM,) if B * C * HG > wave(C) // 2 else ()) + (MAX_SMEM,)
+        for budget in budgets:
+            for keep in ((True, False) if density else (False,)):
+                plan = geometry(C, HG, keep, budget)
+                if plan.stages >= 1:
+                    return plan
+        if C == 1:
+            break
+        C //= 2
     raise ValueError(f"landmark_score: a tile of {plan.chunk_keys} keys beside the {H} query rows, {Kc} landmarks "
                      f"and a range's mask of {plan.n_max} keys needs {plan.smem} bytes, more than the "
                      f"{MAX_SMEM}-byte shared-memory limit")

@@ -100,12 +100,14 @@ def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None
     return out, list(torch.split(mass, sizes, dim=1))
 
 
-def landmark_score(q, keys, landmarks=None, valid=None):
+def landmark_score(q, keys, landmarks=None, valid=None, *, scale: float | None = None):
     """Returns (density [B,T] — per-head softmax mass summed over heads,
     min_dist [B,T] or None when ``landmarks`` is None: the kernel skips its
     coverage block for density-only sweeps). ``valid`` ([B,T] bool,
-    optional) restricts the softmax to valid keys. On a CUDA tensor the
-    whole of it, the valid-masked softmax over T and the sum over heads
-    included, is one launch of the kernel in density mode, which writes no
-    [B,H,T] logits; on a CPU tensor the plain version."""
-    return _ls.landmark_density(q, keys, landmarks, valid, scale=1.0 / (q.shape[-1] ** 0.5))
+    optional) restricts the softmax to valid keys; ``scale`` (the model's
+    attention scale) defaults to 1/sqrt(D). On a CUDA tensor the whole of
+    it, the valid-masked softmax over T and the sum over heads included, is
+    one launch of the kernel in density mode, which writes no [B,H,T]
+    logits; on a CPU tensor the plain version."""
+    scale = 1.0 / (q.shape[-1] ** 0.5) if scale is None else scale
+    return _ls.landmark_density(q, keys, landmarks, valid, scale=scale)

@@ -51,7 +51,7 @@ import argparse
 import threading
 
 from repro_torch import trace
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_config
 from repro_torch.core.engine import CortexEngine
 from repro_torch.core.prism import Prism
 from repro_torch.data.tokenizer import ByteTokenizer
@@ -62,9 +62,6 @@ from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.server import BatchServer
 
-# short enough (32 tokens with the BOS) for every --arch: a Mamba2 prefill
-# takes a prompt of at most ssm_chunk tokens or a multiple of it (32 in the
-# reduced zamba2, 128 at full width), as in the reference
 DEFAULT_REQUESTS = [
     "gold:0:Why? [TASK: check the math] So:",
     "free:0:Sum up the architecture.",
@@ -144,7 +141,7 @@ def _serve_over_sockets(fe, args, lock):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-0.5b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="qwen2.5-0.5b", choices=[*ARCHS, *PORT_ARCHS])
     ap.add_argument("--mode", default="cortex", choices=["cortex", "batch"])
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")

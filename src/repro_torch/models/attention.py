@@ -26,14 +26,17 @@ NEG_INF = -1e30
 SCORE_EMA = 0.99  # decay of the per-slot attention-mass accumulator
 
 
-def attn_init(gen, cfg: ModelConfig, dtype, device, *, lead=(), n_lora: int = 0):
+def attn_init(gen, cfg: ModelConfig, dtype, device, *, lead=(), n_lora: int = 0, d_in: int | None = None):
     """``n_lora`` > 0 adds stacked per-invocation LoRA adapters on the
-    fused qkv projection (lora_b starts at zero, as in the reference)."""
+    fused qkv projection (lora_b starts at zero, as in the reference).
+    ``d_in``: the width q/k/v project from (default d_model; Zamba2's
+    shared block reads [stream; embeddings]); o projects to d_model."""
     h, hkv, d, dm = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    di = d_in or dm
     p = {
-        "wq": dense_init(gen, dm, h * d, dtype, device, lead=lead),
-        "wk": dense_init(gen, dm, hkv * d, dtype, device, lead=lead),
-        "wv": dense_init(gen, dm, hkv * d, dtype, device, lead=lead),
+        "wq": dense_init(gen, di, h * d, dtype, device, lead=lead),
+        "wk": dense_init(gen, di, hkv * d, dtype, device, lead=lead),
+        "wv": dense_init(gen, di, hkv * d, dtype, device, lead=lead),
         "wo": dense_init(gen, h * d, dm, dtype, device, lead=lead),
     }
     z = lambda *s: torch.zeros((*lead, *s), dtype=dtype, device=device)
@@ -88,23 +91,24 @@ def rotate_one(cfg: ModelConfig, q, k, positions):
 # ---------------------------------------------------------------------------
 # blocked full-sequence attention (prefill)
 # ---------------------------------------------------------------------------
-def blocked_attention(q, k, v, *, causal: bool, chunk: int = 1024):
+def blocked_attention(q, k, v, *, causal: bool, chunk: int = 1024, scale: float | None = None):
     """[B,S,H,D] x [B,T,Hkv,D] -> [B,S,H,D], chunked over queries so peak
-    memory is O(chunk * T). On a mesh, on each rank's blocks of lanes and
-    heads (:func:`~repro_torch.models.layers.lane_head_placements`)."""
-    fn = functools.partial(_blocked_attention, causal=causal, chunk=chunk)
+    memory is O(chunk * T); ``scale`` defaults to 1/sqrt(D). On a mesh, on
+    each rank's blocks of lanes and heads
+    (:func:`~repro_torch.models.layers.lane_head_placements`)."""
+    fn = functools.partial(_blocked_attention, causal=causal, chunk=chunk, scale=scale)
     if split_mesh(q) is None:
         return fn(q, k, v)
     mesh, (pl,) = lane_head_placements(q, k.shape[2], (2,))
     return per_shard(fn, mesh, (pl,), (pl, pl, pl), q, k, v)
 
 
-def _blocked_attention(q, k, v, *, causal: bool, chunk: int):
+def _blocked_attention(q, k, v, *, causal: bool, chunk: int, scale: float | None):
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, S, Hkv, G, D)
-    scale = 1.0 / np.sqrt(D)
+    scale = 1.0 / np.sqrt(D) if scale is None else scale
     kpos = torch.arange(T, device=q.device)
     outs = []
     for c0 in range(0, S, chunk):
@@ -124,7 +128,7 @@ def attention_forward(params, cfg: ModelConfig, x, positions, *, lora_idx=None, 
     q, k, v = _project_qkv(params, cfg, x, lora_idx)
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
-    out = blocked_attention(q, k, v, causal=cfg.causal, chunk=chunk)
+    out = blocked_attention(q, k, v, causal=cfg.causal, chunk=chunk, scale=cfg.attn_scale)
     y = merge_heads(out) @ params["wo"]
     return y, (k, v)
 
@@ -132,8 +136,9 @@ def attention_forward(params, cfg: ModelConfig, x, positions, *, lora_idx=None, 
 # ---------------------------------------------------------------------------
 # decode: single-step attend over a key/value set
 # ---------------------------------------------------------------------------
-def decode_attend(q, keys, values, valid):
-    """q: [B,H,D]; keys/values: [B,T,Hkv,D]; valid: [B,T] bool.
+def decode_attend(q, keys, values, valid, scale: float | None = None):
+    """q: [B,H,D]; keys/values: [B,T,Hkv,D]; valid: [B,T] bool; ``scale``
+    defaults to 1/sqrt(D).
 
     Returns (out [B,H,D], key_mass [B,T] f32): key_mass is the attention
     probability summed over all query heads. p is cast to the value dtype
@@ -141,18 +146,20 @@ def decode_attend(q, keys, values, valid):
     blocks of lanes and heads (:func:`~repro_torch.models.layers.lane_head_placements`; the key mass then
     a partial sum over ``model``).
     """
+    fn = functools.partial(_decode_attend, scale=scale)
     if split_mesh(q) is None:
-        return _decode_attend(q, keys, values, valid)
+        return fn(q, keys, values, valid)
     mesh, (pq, pk, pv, pm) = lane_head_placements(q, keys.shape[2], (1, 2, None, None), partial=(3,))
-    return per_shard(_decode_attend, mesh, (pq, pm), (pq, pk, pk, pv), q, keys, values, valid)
+    return per_shard(fn, mesh, (pq, pm), (pq, pk, pk, pv), q, keys, values, valid)
 
 
-def _decode_attend(q, keys, values, valid):
+def _decode_attend(q, keys, values, valid, *, scale: float | None):
     B, H, D = q.shape
     Hkv = keys.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Hkv, G, D)
-    s = torch.einsum("bkgd,btkd->bkgt", qg, keys).float() / np.sqrt(D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, keys).float()
+    s = s / np.sqrt(D) if scale is None else s * scale
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p.to(values.dtype), values)
@@ -202,7 +209,7 @@ def attention_decode_full(params, cfg: ModelConfig, x, cache: cache_lib.FullCach
     masked_lane_write(cache.pos, slot, pos_scalar, ok)
     slots = torch.arange(cap, device=x.device)
     valid = slots[None, :] <= cache.length[:, None]  # includes the token just written
-    out, key_mass = decode_attend(q1, cache.k, cache.v, valid)
+    out, key_mass = decode_attend(q1, cache.k, cache.v, valid, cfg.attn_scale)
     y = merge_heads(out) @ params["wo"]
     masked_lane_write(cache.score, slot, torch.zeros_like(key_mass[:, 0]), ok)
     cache.score.mul_(SCORE_EMA).add_(key_mass)

@@ -193,7 +193,7 @@ def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *, d
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype=None, *, device, lead=()) -> Mamba2State:
     dtype = _dtype(cfg, dtype)
-    d_conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_state_size
+    d_conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state_size
     return Mamba2State(
         conv=torch.zeros((*lead, batch, cfg.ssm_conv_width - 1, d_conv_ch), dtype=dtype, device=device),
         ssm=torch.zeros((*lead, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state_size),
@@ -209,6 +209,11 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype=None, *, device, lead=(
         shift_cm=torch.zeros((*lead, batch, cfg.d_model), dtype=dtype, device=device),
         wkv=torch.zeros((*lead, batch, h, hs, hs), dtype=torch.float32, device=device),
     )
+
+
+def is_recurrent(cache) -> bool:
+    """Whether a cache is a recurrent state (Mamba2's, RWKV6's), not keys."""
+    return isinstance(cache, (Mamba2State, RWKV6State))
 
 
 def cache_bytes(cache) -> int:

@@ -70,9 +70,18 @@ class ModelConfig:
     rwkv_head_size: int = 64
     rwkv_lora_decay: int = 64
     rwkv_lora_mix: int = 32
+    ssm_ngroups: int = 1             # B/C groups: head h reads group h // (n_heads / ngroups)
     # ---- hybrid (zamba2): shared attention block every N ssm layers ----
     shared_attn_every: int = 0
     shared_attn_lora_rank: int = 0   # per-invocation LoRA on shared qkv
+    # ---- hybrid as published (Zamba2's modeling_zamba2): a shared block
+    # runs on [stream; the token's embeddings] before the Mamba2 layer at
+    # each of these depths, with an exact-GELU GeGLU MLP; its output goes
+    # through that depth's linear into the layer's norm input only ----
+    hybrid_layer_ids: tuple[int, ...] = ()
+    n_shared_blocks: int = 1          # invocation i runs block i % n_shared_blocks
+    shared_mlp_lora_rank: int = 0     # per-invocation adapter on the MLP's gate_up
+    attn_scale: float | None = None   # softmax scale; None: 1/sqrt(d_head)
     # ---- misc ----
     block_kind: BlockKind = "attn"
     norm_eps: float = 1e-6
@@ -91,6 +100,11 @@ class ModelConfig:
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        # a tuple however given (a configuration file's list), so the config hashes
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
+        ids = self.hybrid_layer_ids
+        if list(ids) != sorted(set(ids)) or not all(0 <= i < self.n_layers for i in ids):
+            raise ValueError(f"hybrid_layer_ids {ids}: distinct ascending depths below n_layers={self.n_layers}")
         assert self.n_kv_heads == 0 or self.n_heads % max(self.n_kv_heads, 1) == 0
 
     # ------------------------------------------------------------------
@@ -103,8 +117,12 @@ class ModelConfig:
         return self.n_experts > 0
 
     @property
+    def has_shared_block(self) -> bool:
+        return self.shared_attn_every > 0 or bool(self.hybrid_layer_ids)
+
+    @property
     def is_attention_free(self) -> bool:
-        return self.block_kind in ("mamba2", "rwkv6") and self.shared_attn_every == 0
+        return self.block_kind in ("mamba2", "rwkv6") and not self.has_shared_block
 
     @property
     def ssm_d_inner(self) -> int:
@@ -120,6 +138,8 @@ class ModelConfig:
 
     @property
     def n_shared_attn_invocations(self) -> int:
+        if self.hybrid_layer_ids:
+            return len(self.hybrid_layer_ids)
         if self.shared_attn_every <= 0:
             return 0
         return self.n_layers // self.shared_attn_every
@@ -179,7 +199,7 @@ class ModelConfig:
                     per_mlp += self.n_shared_experts * 3 * D * (self.dense_d_ff or self.d_ff)
                 total_layers += g.count * (per_layer_attn + per_mlp + 2 * D)
             elif g.kind == "mamba2":
-                di, ds, nh = self.ssm_d_inner, self.ssm_state_size, self.ssm_n_heads
+                di, ds, nh = self.ssm_d_inner, self.ssm_state_size * self.ssm_ngroups, self.ssm_n_heads
                 inp = D * (2 * di + 2 * ds + nh)
                 conv = (di + 2 * ds) * self.ssm_conv_width
                 out = di * D
@@ -201,6 +221,13 @@ class ModelConfig:
             if r:
                 qkv_out = (self.n_heads + 2 * self.n_kv_heads) * self.d_head
                 total += self.n_shared_attn_invocations * (D * r + r * qkv_out)
+        if self.hybrid_layer_ids:
+            a = 2 * D
+            hd = self.n_heads * self.d_head
+            kvd = self.n_kv_heads * self.d_head
+            block = a + a * (hd + 2 * kvd) + hd * D + D + 3 * D * self.d_ff
+            r = self.shared_mlp_lora_rank
+            total += self.n_shared_blocks * block + self.n_shared_attn_invocations * (D * r + r * 2 * self.d_ff + D * D)
         return total
 
     def active_param_count(self) -> int:
@@ -245,6 +272,11 @@ class ModelConfig:
             )
         if self.block_kind == "mamba2":
             small.update(ssm_state_size=min(self.ssm_state_size, 16), ssm_head_dim=32, ssm_chunk=32)
+        if self.hybrid_layer_ids:
+            # uneven depths, three invocations over alternating blocks, the
+            # attention as wide as its [stream; embeddings] input
+            small.update(n_layers=5, hybrid_layer_ids=(1, 2, 4), d_head=2 * small["d_model"] // n_heads,
+                         shared_mlp_lora_rank=min(self.shared_mlp_lora_rank, 8))
         if self.block_kind == "rwkv6":
             small.update(rwkv_head_size=32, rwkv_lora_decay=16, rwkv_lora_mix=8)
         if self.rope_kind == "mrope":

@@ -276,3 +276,13 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, device, *,
 def swiglu(params, x):
     h = F.silu(x @ params["gate"]) * (x @ params["up"])
     return h @ params["down"]
+
+
+def adapted_geglu(params, x, lora_a, lora_b):
+    """GeGLU ``down(gelu(gate x) * up x)`` with exact GELU, and a rank-r
+    adapter ``(x lora_a) lora_b`` [d -> 2 d_ff] added to [gate x; up x]
+    before the split."""
+    g, u = x @ params["gate"], x @ params["up"]
+    delta = (x @ lora_a) @ lora_b
+    ff = g.shape[-1]
+    return (F.gelu(g + delta[..., :ff]) * (u + delta[..., ff:])) @ params["down"]

@@ -6,9 +6,11 @@ blocked matmuls: a within-chunk quadratic, attention-like term plus a
 recurrence over chunk states. Plain PyTorch, as the reference is plain jnp
 (its oracle is :func:`repro_torch.kernels.ref.mamba2_chunk_ref`).
 
-Recurrence (per head h, scalar decay):
+Recurrence (per head h, scalar decay; B and C of the head's group,
+``ssm_ngroups`` of them, heads split evenly):
     H_t = a_t * H_{t-1} + (dt_t x_t) ⊗ B_t        a_t = exp(dt_t * A_h)
     y_t = C_t · H_t + D_h * x_t
+then RMSNorm of y * silu(z) over each group's channels.
 """
 from __future__ import annotations
 
@@ -23,12 +25,12 @@ from repro_torch.models.layers import dense_init, lane_head_placements, per_shar
 
 
 def mamba2_init(gen, cfg: ModelConfig, dtype, device, *, lead=()):
-    dm, di, ds, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads
+    dm, di, ds, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state_size * cfg.ssm_ngroups, cfg.ssm_n_heads
     d_conv_ch = di + 2 * ds
     f32 = lambda fill, n: torch.full((*lead, n), fill, dtype=torch.float32, device=device)
     conv_w = torch.randn((*lead, cfg.ssm_conv_width, d_conv_ch), generator=gen, device=device) * 0.1
     return {
-        # in_proj -> [z (di), xBC (di + 2ds), dt (nh)]
+        # in_proj -> [z (di), xBC (di + 2 ngroups ds), dt (nh)]
         "w_in": dense_init(gen, dm, 2 * di + 2 * ds + nh, dtype, device, lead=lead),
         "conv_w": conv_w.to(dtype),
         "conv_b": torch.zeros((*lead, d_conv_ch), dtype=dtype, device=device),
@@ -41,8 +43,16 @@ def mamba2_init(gen, cfg: ModelConfig, dtype, device, *, lead=()):
 
 
 def _split_in(cfg: ModelConfig, zxbcdt):
-    di, ds = cfg.ssm_d_inner, cfg.ssm_state_size
+    di, ds = cfg.ssm_d_inner, cfg.ssm_state_size * cfg.ssm_ngroups
     return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * ds], zxbcdt[..., 2 * di + 2 * ds:]
+
+
+def _gated_norm(cfg: ModelConfig, y, z, weight):
+    """RMSNorm of y * silu(z) over each group's own channels (one group:
+    over all of d_inner)."""
+    G = cfg.ssm_ngroups
+    h = (y * F.silu(z)).unflatten(-1, (G, -1))
+    return rms_norm(h, weight.unflatten(-1, (G, -1)), cfg.norm_eps).flatten(-2)
 
 
 _SHARED = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "gate_norm")
@@ -67,8 +77,9 @@ def _on_lanes(core, p, *lane_args):
 
 def mamba2_forward(p, cfg: ModelConfig, x, return_state: bool = False):
     """Full-sequence chunked SSD. x: [B,S,dm] -> y [B,S,dm] (and the
-    terminal decode state). S must be a multiple of the chunk, or shorter
-    than it, as in the reference."""
+    terminal decode state). A sequence longer than a chunk and not a
+    multiple of it has its last chunk padded with zeros, which leave the
+    state as it was at the last real token."""
     y, conv_tail, carry = _on_lanes(functools.partial(_forward_core, cfg=cfg), p, x @ p["w_in"])
     out = y @ p["w_out"]
     if not return_state:
@@ -85,10 +96,12 @@ def _forward_core(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm, *, 
         conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm = (
             t[0] for t in (conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm))
     B, S, _ = zxbcdt.shape
-    di, ds, nh, dh = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim
+    di, ds, nh, dh, G = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_ngroups
     Q = min(cfg.ssm_chunk, S)
-    assert S % Q == 0, (S, Q)
-    nC = S // Q
+    pad = -S % Q
+    Sp = S + pad
+    nC = Sp // Q
+    hg = nh // G  # heads per group
     dev = zxbcdt.device
 
     z, xbc_raw, dt = _split_in(cfg, zxbcdt)
@@ -98,48 +111,50 @@ def _forward_core(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm, *, 
     conv = sum(padded[:, i:i + S, :] * conv_w[i][None, None, :] for i in range(W)) + conv_b
     xbc = F.silu(conv)
     xs = xbc[..., :di].reshape(B, S, nh, dh)
-    Bm = xbc[..., di:di + ds]       # [B,S,ds]
-    Cm = xbc[..., di + ds:]         # [B,S,ds]
+    Bm = xbc[..., di:di + G * ds]   # [B,S,G*ds]
+    Cm = xbc[..., di + G * ds:]     # [B,S,G*ds]
 
     dt = F.softplus(dt.float() + dt_bias)                       # [B,S,nh]
     A = -torch.exp(a_log)                                       # [nh]
-    la = (dt * A).reshape(B, nC, Q, nh)                         # log decay per step
+    # the padded steps (zeros: decay 1, no input) leave the state as it was
+    tail = lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    la = tail(dt * A).reshape(B, nC, Q, G, hg)                  # log decay per step
     cum = torch.cumsum(la, dim=2)                               # Λ_i
-    X = (xs.float() * dt[..., None]).reshape(B, nC, Q, nh, dh)
-    Bc = Bm.float().reshape(B, nC, Q, ds)
-    Cc = Cm.float().reshape(B, nC, Q, ds)
+    X = tail(xs.float() * dt[..., None]).reshape(B, nC, Q, G, hg, dh)
+    Bc = tail(Bm.float()).reshape(B, nC, Q, G, ds)
+    Cc = tail(Cm.float()).reshape(B, nC, Q, G, ds)
 
     # ---- intra-chunk: Y[i] = Σ_{j<=i} exp(Λ_i-Λ_j) (C_i·B_j) X_j ----
-    G = torch.einsum("bcis,bcjs->bcij", Cc, Bc)                 # [B,nC,Q,Q]
-    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # Λ_i - Λ_j: [B,nC,Q,Q,nh]
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))[None, None, :, :, None]
+    Gm = torch.einsum("bcigs,bcjgs->bcijg", Cc, Bc)             # [B,nC,Q,Q,G]
+    dec = cum[:, :, :, None] - cum[:, :, None, :]               # Λ_i - Λ_j: [B,nC,Q,Q,G,hg]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))[None, None, :, :, None, None]
     # above the diagonal Λ_i - Λ_j > 0 can overflow exp; its gradient would
     # be 0 x inf = NaN there, so the masked entries are zeroed before exp
     # too (the values are the reference's)
     zero = torch.zeros((), device=dev)
-    M = torch.where(mask, torch.exp(torch.where(mask, dec, zero)), zero) * G[..., None]
-    y_intra = torch.einsum("bcijh,bcjhd->bcihd", M, X)
+    M = torch.where(mask, torch.exp(torch.where(mask, dec, zero)), zero) * Gm[..., None]
+    y_intra = torch.einsum("bcijgh,bcjghd->bcighd", M, X)
 
     # ---- chunk states: S_c = Σ_j exp(Λ_Q - Λ_j) B_j ⊗ X_j ----
-    tail_dec = torch.exp(cum[:, :, -1:, :] - cum)               # [B,nC,Q,nh]
-    chunk_state = torch.einsum("bcjh,bcjs,bcjhd->bchds", tail_dec, Bc, X)  # [B,nC,nh,dh,ds]
-    chunk_decay = torch.exp(cum[:, :, -1, :])                   # [B,nC,nh]
+    tail_dec = torch.exp(cum[:, :, -1:] - cum)                  # [B,nC,Q,G,hg]
+    chunk_state = torch.einsum("bcjgh,bcjgs,bcjghd->bcghds", tail_dec, Bc, X)  # [B,nC,G,hg,dh,ds]
+    chunk_decay = torch.exp(cum[:, :, -1])                      # [B,nC,G,hg]
 
     # ---- inter-chunk recurrence over chunk states ----
-    carry = torch.zeros((B, nh, dh, ds), dtype=torch.float32, device=dev)
+    carry = torch.zeros((B, G, hg, dh, ds), dtype=torch.float32, device=dev)
     prev = []
     for c in range(nC):
         prev.append(carry)  # the state entering chunk c
-        carry = carry * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-    prev_states = torch.stack(prev, dim=1)                      # [B,nC,nh,dh,ds]
-    y_inter = torch.einsum("bcis,bcih,bchds->bcihd", Cc, torch.exp(cum), prev_states)
+        carry = carry * chunk_decay[:, c, :, :, None, None] + chunk_state[:, c]
+    prev_states = torch.stack(prev, dim=1)                      # [B,nC,G,hg,dh,ds]
+    y_inter = torch.einsum("bcigs,bcigh,bcghds->bcighd", Cc, torch.exp(cum), prev_states)
 
-    y = (y_intra + y_inter).reshape(B, S, nh, dh) + xs.float() * d_skip[None, None, :, None]
-    y = y.reshape(B, S, di)
-    y = rms_norm(y.to(zxbcdt.dtype) * F.silu(z), gate_norm, cfg.norm_eps)
-    # terminal decode state: the raw (pre-conv) input tail (the
-    # reference's slice, shorter when S < W - 1)
-    conv_tail = xbc_raw[:, S - (W - 1):, :] if W > 1 else xbc_raw[:, :0, :]
+    y = (y_intra + y_inter).reshape(B, Sp, nh, dh)[:, :S] + xs.float() * d_skip[None, None, :, None]
+    y = _gated_norm(cfg, y.reshape(B, S, di).to(zxbcdt.dtype), z, gate_norm)
+    # terminal decode state: the raw (pre-conv) input's last W - 1 rows,
+    # zeros before the first token when S < W - 1
+    conv_tail = padded[:, S:, :]
+    carry = carry.reshape(B, nh, dh, ds)
     return y, conv_tail, carry
 
 
@@ -158,19 +173,21 @@ def _decode_core(zxbcdt, conv_state, ssm_state, conv_w, conv_b, dt_bias, a_log, 
         conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm = (
             t[0] for t in (conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm))
     B = zxbcdt.shape[0]
-    di, ds, nh, dh = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim
+    di, ds, nh, dh, G = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_ngroups
     z, xbc, dt = _split_in(cfg, zxbcdt)
     # conv over [tail, new]
     window = torch.cat([conv_state, xbc[:, None, :].to(conv_state.dtype)], dim=1)  # [B, W, ch]
     conv = torch.einsum("bwc,wc->bc", window.float(), conv_w.float()) + conv_b.float()
     xbc_a = F.silu(conv)
     xs = xbc_a[:, :di].reshape(B, nh, dh)
-    Bm = xbc_a[:, di:di + ds]
-    Cm = xbc_a[:, di + ds:]
+    Bm = xbc_a[:, di:di + G * ds].reshape(B, G, ds)
+    Cm = xbc_a[:, di + G * ds:].reshape(B, G, ds)
     dt = F.softplus(dt.float() + dt_bias)                       # [B,nh]
     a = torch.exp(dt * (-torch.exp(a_log)))                     # [B,nh]
-    X = xs * dt[..., None]                                      # [B,nh,dh]
-    new_ssm = ssm_state * a[:, :, None, None] + torch.einsum("bhd,bs->bhds", X, Bm)
-    y = torch.einsum("bhds,bs->bhd", new_ssm, Cm) + xs * d_skip[None, :, None]
-    y = rms_norm(y.reshape(B, di).to(zxbcdt.dtype) * F.silu(z), gate_norm, cfg.norm_eps)
+    X = (xs * dt[..., None]).reshape(B, G, nh // G, dh)         # [B,G,hg,dh]
+    upd = torch.einsum("bghd,bgs->bghds", X, Bm).reshape(B, nh, dh, ds)
+    new_ssm = ssm_state * a[:, :, None, None] + upd
+    y = torch.einsum("bghds,bgs->bghd", new_ssm.reshape(B, G, nh // G, dh, ds), Cm).reshape(B, nh, dh)
+    y = y + xs * d_skip[None, :, None]
+    y = _gated_norm(cfg, y.reshape(B, di).to(zxbcdt.dtype), z, gate_norm)
     return y, window[:, 1:, :], new_ssm

@@ -9,12 +9,17 @@ and ``head`` unless embeddings are tied — so :mod:`repro_torch.bridge`
 carries JAX weights over leaf by leaf. The layer stack runs as the
 reference's *segments*: a run of layers of one group, then, in the hybrid
 (zamba2), one invocation of the shared attention block with its own LoRA
-and its own slice of the stacked shared cache. Layers are a Python loop
+and its own slice of the stacked shared cache. The published Zamba2
+(``cfg.hybrid_layer_ids``) keeps its ``n_shared_blocks`` blocks stacked
+under ``shared_attn`` and each invocation's adapter and linear under
+``hybrid``; an invocation's output enters only the next Mamba2 layer's
+norm input, as in ``transformers``' ``Zamba2HybridLayer``. Layers are a Python loop
 over the stacked leaves. Prefill and decode update the caches IN PLACE
 (the reference donates them).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass, field
 
@@ -27,8 +32,8 @@ from repro_torch.core import synapse as synapse_lib
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, cache as cache_lib, mamba2, mla, moe, rwkv6
 from repro_torch.models.config import LayerGroup, ModelConfig
-from repro_torch.models.layers import (dense_init, embed_init, embed_lookup, gather_fsdp, replicate_dims, rms_norm,
-                                      swiglu, swiglu_init)
+from repro_torch.models.layers import (adapted_geglu, dense_init, embed_init, embed_lookup, gather_fsdp, replicate_dims,
+                                      rms_norm, swiglu, swiglu_init)
 
 
 @dataclass(frozen=True)
@@ -81,6 +86,13 @@ class Segment:
 def build_segments(cfg: ModelConfig) -> list[Segment]:
     segs: list[Segment] = []
     groups = cfg.layer_groups()
+    if cfg.hybrid_layer_ids:
+        # invocation i runs before the layer at depth hybrid_layer_ids[i]
+        start = 0
+        for inv, depth in enumerate(cfg.hybrid_layer_ids):
+            segs.append(Segment(0, start, depth - start, inv))
+            start = depth
+        return segs + [Segment(0, start, cfg.n_layers - start, -1)]
     if cfg.shared_attn_every > 0:
         assert len(groups) == 1
         every, total = cfg.shared_attn_every, groups[0].count
@@ -137,7 +149,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     if cfg.embed_inputs or not cfg.is_encoder_only:
         params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
     params["groups"] = [_block_init(gen, cfg, grp, dtype, device) for grp in cfg.layer_groups()]
-    if cfg.shared_attn_every > 0:
+    if cfg.hybrid_layer_ids:
+        params.update(_hybrid_init(gen, cfg, dtype, device))
+    elif cfg.shared_attn_every > 0:
         params["shared_attn"] = {
             "ln1": ones(),
             "attn": attention.attn_init(gen, cfg, dtype, device, n_lora=cfg.n_shared_attn_invocations),
@@ -148,6 +162,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, device)
     return params
+
+
+def _hybrid_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """The published Zamba2's shared blocks, stacked [n_shared_blocks, ...]
+    over inputs [stream; embeddings], and per invocation [n_inv, ...] its
+    linear (``w_out``) and its adapter on the MLP's gate_up (``lora_b``
+    starts at zero)."""
+    d, nb, ni, r = cfg.d_model, cfg.n_shared_blocks, cfg.n_shared_attn_invocations, cfg.shared_mlp_lora_rank
+    a = 2 * d
+    ones = lambda n: torch.ones((nb, n), dtype=dtype, device=device)
+    hybrid = {"w_out": dense_init(gen, d, d, dtype, device, lead=(ni,)),
+              "lora_a": dense_init(gen, d, r, dtype, device, lead=(ni,)),
+              "lora_b": torch.zeros((ni, r, 2 * cfg.d_ff), dtype=dtype, device=device)}
+    return {"shared_attn": {"ln1": ones(a), "attn": attention.attn_init(gen, cfg, dtype, device, lead=(nb,), d_in=a),
+                           "ln2": ones(d), "mlp": swiglu_init(gen, d, cfg.d_ff, dtype, device, lead=(nb,))},
+            "hybrid": hybrid}
 
 
 def abstract_params(cfg: ModelConfig):
@@ -287,7 +317,7 @@ def init_caches(cfg: ModelConfig, batch: int, spec: CacheSpec, *, device) -> Mod
         else:
             c = cache_lib.init_rwkv6_state(cfg, batch, dtype, lead=L, **kw)
         out.append(c)
-    shared = attn_cache((cfg.n_shared_attn_invocations,)) if cfg.shared_attn_every > 0 else None
+    shared = attn_cache((cfg.n_shared_attn_invocations,)) if cfg.has_shared_block else None
     return ModelCaches(groups=tuple(out), shared=shared)
 
 
@@ -302,13 +332,27 @@ def lane_caches(caches: ModelCaches, lane: int) -> ModelCaches:
     return caches.map(lambda c: cache_lib.map_cache(lambda a: a[:, lane:lane + 1], c))
 
 
-def write_lane(caches: ModelCaches, part: ModelCaches, lane: int) -> None:
+def write_lane(caches: ModelCaches, part: ModelCaches, lane: int, *, recurrent: bool | None = None) -> None:
     """In place: ``lane`` of the stacked caches takes the values of the
     one-lane caches ``part``. A part shorter along a slot axis (an MLA
     river cache spawned into a longer side cache) fills the leading slots,
-    as the reference's ``dynamic_update_slice`` does."""
-    for a, b in zip(caches.tensors(), part.tensors()):
-        cache_lib.leading(a[:, lane:lane + 1], b.shape).copy_(b)
+    as the reference's ``dynamic_update_slice`` does. ``recurrent``: only
+    the recurrent states (True), only the attention caches (False), or
+    both (None)."""
+    for c, p in zip(caches.parts(), part.parts()):
+        if recurrent is not None and cache_lib.is_recurrent(c) != recurrent:
+            continue
+        for a, b in zip(cache_lib.tensors(c), cache_lib.tensors(p)):
+            cache_lib.leading(a[:, lane:lane + 1], b.shape).copy_(b)
+
+
+def held_bytes(caches: ModelCaches) -> tuple[int, int]:
+    """(recurrent state bytes, attention cache bytes) the stacked caches
+    hold, from their shapes (no device value is read)."""
+    out = [0, 0]
+    for c in caches.parts():
+        out[0 if cache_lib.is_recurrent(c) else 1] += cache_lib.cache_bytes(c)
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -371,10 +415,42 @@ def _shared_attn_fwd(p, cfg: ModelConfig, x, positions, lora_idx: int, chunk):
     return _radd(x, swiglu(p["mlp"], h)), kv
 
 
-def _mamba2_fwd_state(p_layer, cfg: ModelConfig, x):
+def _hybrid_parts(params, cfg: ModelConfig, inv: int):
+    """(the shared block, the invocation's adapter and linear) that the
+    published hybrid's invocation ``inv`` runs."""
+    return _gathered(_layer(params["shared_attn"], inv % cfg.n_shared_blocks)), _gathered(_layer(params["hybrid"], inv))
+
+
+def _hybrid_input(cfg: ModelConfig, x, emb):
+    """The shared block's input: [stream; the token's embeddings]."""
+    return torch.cat([x, emb], dim=-1)
+
+
+def _hybrid_out(sp, hp, cfg: ModelConfig, y):
+    """The block's MLP over its attention output ``y`` (no residual), then
+    the invocation's linear: what the next Mamba2 layer adds to its norm input."""
+    h = rms_norm(y, sp["ln2"], cfg.norm_eps)
+    return adapted_geglu(sp["mlp"], h, hp["lora_a"], hp["lora_b"]) @ hp["w_out"]
+
+
+def _hybrid_block_fwd(sp, hp, cfg: ModelConfig, x_in, positions, chunk):
+    """One invocation of the published shared block over a sequence:
+    (its output for the next Mamba2 layer, (k_rot, v))."""
+    h = rms_norm(x_in, sp["ln1"], cfg.norm_eps)
+    y, kv = attention.attention_forward(sp["attn"], cfg, h, positions, chunk=chunk)
+    return _hybrid_out(sp, hp, cfg, y), kv
+
+
+def _with_extra(x, extra):
+    """A Mamba2 layer's norm input: the stream, plus the output of the
+    shared block invoked before it (the stream itself does not take it)."""
+    return x if extra is None else _radd(x, extra)
+
+
+def _mamba2_fwd_state(p_layer, cfg: ModelConfig, x, extra=None):
     """Mamba2 layer forward that also returns the terminal decode state."""
     x = _whole_seq(x)
-    h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
+    h = rms_norm(_with_extra(x, extra), p_layer["ln"], cfg.norm_eps)
     y, state = mamba2.mamba2_forward(p_layer["mixer"], cfg, h, return_state=True)
     return _radd(x, y), state
 
@@ -392,15 +468,16 @@ def _rwkv6_fwd_state(p_layer, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 # full-sequence forward
 # ---------------------------------------------------------------------------
-def _layer_fwd(p_layer, x, *, cfg: ModelConfig, grp: LayerGroup, positions, chunk):
+def _layer_fwd(p_layer, x, extra=None, *, cfg: ModelConfig, grp: LayerGroup, positions, chunk):
     """One layer of a group: (x_out, aux), aux None but for attention
-    blocks (whose MLP may be a MoE)."""
+    blocks (whose MLP may be a MoE). ``extra``: the published hybrid's
+    block output, added to a Mamba2 layer's norm input."""
     p_layer, x = _gathered(p_layer), _whole_seq(x)
     if grp.kind == "attn":
         x, aux, _ = _attn_block_fwd(p_layer, cfg, grp.mlp, x, positions, chunk)
         return x, aux
     if grp.kind == "mamba2":
-        h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
+        h = rms_norm(_with_extra(x, extra), p_layer["ln"], cfg.norm_eps)
         return _radd(x, mamba2.mamba2_forward(p_layer["mixer"], cfg, h)), None
     return _rwkv6_fwd_state(p_layer, cfg, x)[0], None
 
@@ -439,20 +516,25 @@ def forward(params, cfg: ModelConfig, inputs: dict, *, chunk: int = 1024):
     ``cfg.remat`` and ``cfg.remat_policy`` say; the values are the same.
     """
     params = cast_params(params, cfg)
-    x = _inputs(params, cfg, inputs)
+    x = emb = _inputs(params, cfg, inputs)
     B, S = x.shape[:2]
     positions = _positions(cfg, inputs, B, S, x.device)
     groups = cfg.layer_groups()
     aux_total = _zero_aux(x.device)
+    extra = None
     for seg in build_segments(cfg):
         grp, pg = groups[seg.group], params["groups"][seg.group]
         layer = _remat(cfg, functools.partial(_layer_fwd, cfg=cfg, grp=grp, positions=positions, chunk=chunk))
         for i in range(seg.start, seg.start + seg.count):
-            x, aux = layer(_layer(pg, i), _constrain(x))
-            x = _constrain(x)
+            x, aux = layer(_layer(pg, i), _constrain(x), extra)
+            x, extra = _constrain(x), None
             if aux is not None:
                 aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
-        if seg.shared_after >= 0:
+        if seg.shared_after >= 0 and cfg.hybrid_layer_ids:
+            sp, hp = _hybrid_parts(params, cfg, seg.shared_after)
+            x = _whole_seq(x)
+            extra, _ = _hybrid_block_fwd(sp, hp, cfg, _hybrid_input(cfg, x, _whole_seq(emb)), positions, chunk)
+        elif seg.shared_after >= 0:
             x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, positions, seg.shared_after, chunk)
     x = rms_norm(_whole_seq(x), params["final_norm"], cfg.norm_eps)
     aux_total["hidden_last"] = x[:, -1, :]
@@ -491,7 +573,8 @@ def _fill_attn_cache(cfg: ModelConfig, spec: CacheSpec, cache, kv, q_last, posit
     dens = None
     if with_score:
         dens = synapse_lib.attention_density(
-            q_last, k_rot.to(cache.k.dtype), torch.ones(k_rot.shape[:2], dtype=torch.bool, device=k_rot.device))
+            q_last, k_rot.to(cache.k.dtype), torch.ones(k_rot.shape[:2], dtype=torch.bool, device=k_rot.device),
+            cfg.attn_scale)
     _fill_full_cache(cache, k_rot, v, positions, lengths, score=dens)
 
 
@@ -504,19 +587,21 @@ def prefill(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, spec
     f32, hidden_last [B,d], caches).
     """
     assert not cfg.is_encoder_only, "encoder-only archs have no decode/prefill"
-    x = _inputs(params, cfg, inputs)
+    x = emb = _inputs(params, cfg, inputs)
     B, S = x.shape[:2]
     positions = _positions(cfg, inputs, B, S, x.device)
     pos_scalar = positions[:, 0, :] if cfg.rope_kind == "mrope" else positions
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     groups = cfg.layer_groups()
+    extra = None
     for seg in build_segments(cfg):
         grp, pg, cg = groups[seg.group], params["groups"][seg.group], caches.groups[seg.group]
         for i in range(seg.start, seg.start + seg.count):
             p_layer, cache = _gathered(_layer(pg, i)), layer_cache(cg, i)
             x = _constrain(x)
             if grp.kind == "mamba2":
-                x, state = _mamba2_fwd_state(p_layer, cfg, x)
+                x, state = _mamba2_fwd_state(p_layer, cfg, x, extra)
+                extra = None
                 cache_lib.copy_into(cache, state)
                 continue
             if grp.kind == "rwkv6":
@@ -533,7 +618,15 @@ def prefill(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, spec
                 continue
             q_last = _last_query(p_layer, cfg, carry, positions)
             _fill_attn_cache(cfg, spec, cache, kv, q_last, pos_scalar, lengths, with_score=True)
-        if seg.shared_after >= 0:
+        if seg.shared_after >= 0 and cfg.hybrid_layer_ids:
+            inv = seg.shared_after
+            sp, hp = _hybrid_parts(params, cfg, inv)
+            x_in = _hybrid_input(cfg, _whole_seq(x), _whole_seq(emb))
+            extra, kv = _hybrid_block_fwd(sp, hp, cfg, x_in, positions, chunk)
+            q_last = _last_query(sp, cfg, x_in, positions) if spec.kind == "synapse" else None
+            _fill_attn_cache(cfg, spec, layer_cache(caches.shared, inv), kv, q_last, pos_scalar, lengths,
+                             with_score=False)
+        elif seg.shared_after >= 0:
             inv, x_before = seg.shared_after, x
             x, kv = _shared_attn_fwd(params["shared_attn"], cfg, x, positions, inv, chunk)
             q_last = (_last_query(params["shared_attn"], cfg, x_before, positions, lora_idx=inv)
@@ -571,38 +664,30 @@ def _attn_decode(p_attn, cfg: ModelConfig, spec: CacheSpec, h, cache, positions)
 def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, spec: CacheSpec):
     """One-token decode. inputs: {"tokens": [B] int32} or {"embeds": [B,d]},
     and "positions": [B] (or [B,3] for M-RoPE). Updates ``caches`` in place;
-    returns (logits [B,V] f32, hidden [B,d], caches). The shared block's
-    decode takes no LoRA, as in the reference."""
+    returns (logits [B,V] f32, hidden [B,d], caches). The reference
+    variant's shared block decodes without its qkv LoRA, as in the
+    reference; the published hybrid's blocks apply their MLP adapters."""
     assert not cfg.is_encoder_only, "encoder-only archs have no decode/prefill"
-    x = _inputs(params, cfg, inputs)[:, None, :]
+    x = emb = _inputs(params, cfg, inputs)[:, None, :]
     positions = inputs["positions"]
     groups = cfg.layer_groups()
+    extra = None
     for seg in build_segments(cfg):
         grp, pg, cg = groups[seg.group], params["groups"][seg.group], caches.groups[seg.group]
-        for i in range(seg.start, seg.start + seg.count):
-            p_layer, cache = _gathered(_layer(pg, i)), layer_cache(cg, i)
-            if grp.kind == "attn":
-                h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-                with trace.span("decode.attn", layer=i):
-                    att = _attn_decode(p_layer["attn"], cfg, spec, h, cache, positions)
-                x = _radd(x, att)
-                h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
-                y = moe.moe_forward(p_layer["mlp"], cfg, h)[0] if grp.mlp == "moe" else swiglu(p_layer["mlp"], h)
-                x = _radd(x, y)
-            elif grp.kind == "mamba2":
-                h = rms_norm(x, p_layer["ln"], cfg.norm_eps)
-                y, state = mamba2.mamba2_decode(p_layer["mixer"], cfg, h, cache)
-                cache_lib.copy_into(cache, state)
-                x = _radd(x, y)
-            else:
-                h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-                y, state = rwkv6.rwkv6_tmix_decode(p_layer["tmix"], cfg, h, cache)
-                x = _radd(x, y)
-                h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
-                y, state = rwkv6.rwkv6_cmix_decode(p_layer["cmix"], cfg, h, state)
-                cache_lib.copy_into(cache, state)
-                x = _radd(x, y)
-        if seg.shared_after >= 0:
+        run = (trace.span("decode.mamba", layer=seg.start, count=seg.count) if grp.kind == "mamba2"
+               else contextlib.nullcontext())
+        with run:
+            x = _decode_run(pg, cg, cfg, grp, spec, seg, x, extra, positions)
+        extra = None
+        if seg.shared_after >= 0 and cfg.hybrid_layer_ids:
+            inv = seg.shared_after
+            with trace.span("decode.shared", invocation=inv, block=inv % cfg.n_shared_blocks):
+                sp, hp = _hybrid_parts(params, cfg, inv)
+                h = rms_norm(_hybrid_input(cfg, x, emb), sp["ln1"], cfg.norm_eps)
+                with trace.span("decode.attn", shared=inv):
+                    att = _attn_decode(sp["attn"], cfg, spec, h, layer_cache(caches.shared, inv), positions)
+                extra = _hybrid_out(sp, hp, cfg, att)
+        elif seg.shared_after >= 0:
             sp = _gathered(params["shared_attn"])
             h = rms_norm(x, sp["ln1"], cfg.norm_eps)
             with trace.span("decode.attn", shared=seg.shared_after):
@@ -612,3 +697,34 @@ def decode_step(params, cfg: ModelConfig, inputs: dict, caches: ModelCaches, *, 
             x = _radd(x, swiglu(sp["mlp"], h))
     hidden = rms_norm(x[:, 0, :], params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, hidden), hidden, caches
+
+
+def _decode_run(pg, cg, cfg: ModelConfig, grp: LayerGroup, spec: CacheSpec, seg: Segment, x, extra, positions):
+    """One token through a segment's run of layers, caches in place;
+    ``extra`` (the published hybrid's block output) enters the first
+    Mamba2 layer's norm input. Returns x."""
+    for i in range(seg.start, seg.start + seg.count):
+        p_layer, cache = _gathered(_layer(pg, i)), layer_cache(cg, i)
+        if grp.kind == "attn":
+            h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            with trace.span("decode.attn", layer=i):
+                att = _attn_decode(p_layer["attn"], cfg, spec, h, cache, positions)
+            x = _radd(x, att)
+            h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
+            y = moe.moe_forward(p_layer["mlp"], cfg, h)[0] if grp.mlp == "moe" else swiglu(p_layer["mlp"], h)
+            x = _radd(x, y)
+        elif grp.kind == "mamba2":
+            h = rms_norm(_with_extra(x, extra), p_layer["ln"], cfg.norm_eps)
+            extra = None
+            y, state = mamba2.mamba2_decode(p_layer["mixer"], cfg, h, cache)
+            cache_lib.copy_into(cache, state)
+            x = _radd(x, y)
+        else:
+            h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            y, state = rwkv6.rwkv6_tmix_decode(p_layer["tmix"], cfg, h, cache)
+            x = _radd(x, y)
+            h = rms_norm(x, p_layer["ln2"], cfg.norm_eps)
+            y, state = rwkv6.rwkv6_cmix_decode(p_layer["cmix"], cfg, h, state)
+            cache_lib.copy_into(cache, state)
+            x = _radd(x, y)
+    return x

@@ -137,6 +137,45 @@ def test_landmark_density_kernel_matches_plain(card, shape, dtype, with_landmark
     assert torch.equal(again[0], dens) and (dist is None or torch.equal(again[1], dist))
 
 
+# Zamba2-7B's shared blocks, 32 heads of 224 at the scale (224/2)^-0.5: the
+# council's side decode (96 lanes, T = K + W + J) and a spawn's density
+# sweep over the 13 invocations of one river of 2,048 slots
+Z7_SIDE, Z7_SPAWN, Z7_SCALE = (96, 32, 32, 224, 144), (13, 32, 32, 224, 2048), (224 / 2) ** -0.5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_synapse_attention_at_heads_of_224(card, dtype):
+    q, k, v, valid = _inputs(Z7_SIDE, dtype, card, seed=11)
+    before = sa.KERNEL.launches
+    out, mass = sa.synapse_attention(q, k, v, valid, scale=Z7_SCALE)
+    torch.cuda.synchronize()
+    assert sa.KERNEL.launches == before + 1
+    out_r, mass_r = ref.synapse_attention_ref(q, k, v, valid, scale=Z7_SCALE)
+    torch.testing.assert_close(out.float(), out_r.float(), **_tol(dtype))
+    torch.testing.assert_close(mass, mass_r, **_tol(dtype))
+    again = sa.synapse_attention(q, k, v, valid, scale=Z7_SCALE)
+    assert torch.equal(again[0], out) and torch.equal(again[1], mass)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_landmark_density_at_heads_of_224(card, dtype):
+    B, H, Hkv, D, T = Z7_SPAWN
+    q, k, _, valid = _inputs(Z7_SPAWN, dtype, card, seed=12)
+    before = ls.KERNEL.launches
+    dens, dist = ops.landmark_score(q, k, None, valid, scale=Z7_SCALE)
+    torch.cuda.synchronize()
+    assert ls.KERNEL.launches == before + 1 and dist is None
+    dens_r, _ = ref.landmark_density_ref(q, k, valid, None, scale=Z7_SCALE)
+    _smoke().check_density(dens, dens_r, dtype, H)
+    assert torch.equal(ops.landmark_score(q, k, None, valid, scale=Z7_SCALE)[0], dens)
+    # logits mode, and density mode beside 64 landmarks, leave no room for a
+    # tile of these heads in shared memory: refused, not launched
+    lm = torch.randn((B, 64, D), device=card).to(dtype)
+    for call in (lambda: ls.landmark_score(q, k, scale=Z7_SCALE), lambda: ops.landmark_score(q, k, lm, valid)):
+        with pytest.raises(ValueError, match="shared-memory limit"):
+            call()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mask", ["prefix", "none", "one_key"])
 def test_landmark_density_masks_on_card(card, dtype, mask):

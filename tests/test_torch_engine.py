@@ -127,7 +127,8 @@ def test_dispatch_and_sync_accounting_equal(reference, port):
     # lanes decoded and how ticks were issued, held to the reference's
     # history and lane count
     own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks",
-           "graph_ticks", "eager_ticks", "graph_captures"}
+           "graph_ticks", "eager_ticks", "graph_captures",
+           "recurrent_state_bytes", "attn_cache_bytes", "state_copy_bytes", "state_blend_bytes"}
     for key, val in eng.stats.items():
         if key not in own:
             assert val == reference.stats[key], key

@@ -26,6 +26,7 @@ from repro_torch.core.engine import CortexEngine
 from repro_torch.core.prism import Prism
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models import model as tmodel
+from repro_torch.models.config import ModelConfig
 from repro_torch.serving.server import BatchServer
 
 ARCHS = list(jconfigs.ARCHS)
@@ -99,10 +100,15 @@ def _weights(arch):
 # ---------------------------------------------------------------------------
 def test_registry_and_configs_equal_the_reference():
     assert list(configs.ARCHS) == ARCHS == configs.list_archs()
+    # the port's own fields (the published Zamba2's) stay at their defaults
+    theirs = {f.name for f in dataclasses.fields(jconfigs.get_config(ARCHS[0]))}
+    own = {f.name: f.default for f in dataclasses.fields(ModelConfig) if f.name not in theirs}
+    assert set(own) == {"ssm_ngroups", "hybrid_layer_ids", "n_shared_blocks", "shared_mlp_lora_rank", "attn_scale"}
     for arch in ARCHS:
         for reduced in (False, True):
-            assert (dataclasses.asdict(get_config(arch, reduced))
-                    == dataclasses.asdict(jconfigs.get_config(arch, reduced))), (arch, reduced)
+            port = dataclasses.asdict(get_config(arch, reduced))
+            assert {k: port.pop(k) for k in own} == own, (arch, reduced)
+            assert port == dataclasses.asdict(jconfigs.get_config(arch, reduced)), (arch, reduced)
         cfg, jcfg = get_config(arch), jconfigs.get_config(arch)
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()

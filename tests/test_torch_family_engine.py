@@ -122,14 +122,22 @@ def test_engine_streams_history_and_gates_equal_jax(pair):
             assert b["accepted"] == a["accepted"] and b["thought"] == a["thought"]
             assert abs(b["gate_score"] - a["gate_score"]) < GATE_TOL
     # the port's own counters (the reference has none): spawns, the side
-    # lanes decoded and how ticks were issued, held to the reference's history
+    # lanes decoded, how ticks were issued and the bytes of caches and
+    # states, held to the reference's history
     own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks",
-           "graph_ticks", "eager_ticks", "graph_captures"}
+           "graph_ticks", "eager_ticks", "graph_captures",
+           "recurrent_state_bytes", "attn_cache_bytes", "state_copy_bytes", "state_blend_bytes"}
     for key, val in eng.stats.items():
         if key not in own:
             assert val == ref.stats[key], key
     assert eng.stats["spawns"] == 2 and eng.stats["spawns_dropped"] == 0
     assert 0 < eng.stats["live_side_lane_ticks"] <= eng.stats["side_lane_ticks"]
+    # each spawn copies, and each merge blends, one river lane's recurrent state
+    held = eng.stats["recurrent_state_bytes"] + eng.stats["attn_cache_bytes"]
+    assert held == sum(t.numel() * t.element_size()
+                       for c in (eng.state.main_caches, eng.state.side_caches) for t in c.tensors())
+    lane = eng.stats["recurrent_state_bytes"] // (eng.n_main + eng.max_side)
+    assert eng.stats["state_copy_bytes"] == eng.stats["state_blend_bytes"] == 2 * lane
     # on the CPU every dispatched tick is eager
     hist = eng.stats["window_hist"]
     assert eng.stats["eager_ticks"] == sum(n * c for n, c in hist.items()) > 0

@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.core.synapse_sharded"} <= set(mods)
     assert {m.rsplit(".", 1)[1] for m in mods if m.startswith("repro_torch.configs.")} == {
         "zamba2_1p2b", "qwen2_vl_72b", "rwkv6_1p6b", "qwen3_moe_30b_a3b", "qwen1p5_110b", "qwen3_8b",
-        "hubert_xlarge", "deepseek_v2_236b", "qwen3_4b", "smollm_135m", "qwen25_0p5b"}
+        "hubert_xlarge", "deepseek_v2_236b", "qwen3_4b", "smollm_135m", "qwen25_0p5b", "zamba2_7b"}
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:

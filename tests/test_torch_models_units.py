@@ -225,13 +225,20 @@ def test_mamba2_terminal_state_matches_decode_chain_and_jax():
 
 
 def test_mamba2_refuses_a_ragged_sequence_as_jax():
-    """S must be a multiple of the chunk (or shorter): the reference's assert."""
+    """The reference refuses S that is not a multiple of the chunk (nor
+    shorter); the port pads the last chunk with zeros instead, and gives
+    what the reference gives at a chunk that divides S: the output and the
+    terminal state at the last real token."""
     jcfg, cfg, jp, tp = _mamba_setup(16)
     jx, tx = _randn(1, 1, 24, cfg.d_model)
     with pytest.raises(AssertionError):
         jmamba2.mamba2_forward(jp, jcfg, jx)
-    with pytest.raises(AssertionError):
-        mamba2.mamba2_forward(tp, cfg, tx)
+    y, st = mamba2.mamba2_forward(tp, cfg, tx, return_state=True)
+    jcfg8, _, _, _ = _mamba_setup(8)
+    jy, jst = _jit(jmamba2.mamba2_forward, jcfg8, return_state=True)(jp, jx)
+    _close(y, jy)
+    _close(st.ssm, jst.ssm)
+    _close(st.conv, jst.conv)
 
 
 def test_mamba2_chunk_ref_oracle():
