@@ -4,7 +4,7 @@
 
 Phases, each failing the run on its own failure:
 
-1. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and print each one's ptxas summary.
 2. Print each kernel's launch plan at the main path's shape (grid,
    cluster, shared-memory bytes) and its ptxas registers and spills. Hold
@@ -29,7 +29,13 @@ Phases, each failing the run on its own failure:
    3d-spawn, its bound counting the keys of the tiles loaded). Each
    kernel's log line also shows its time before the redesign
    (``EARLIER_MS``, a constant: the ``kernels`` line carries only numbers
-   this run measured, and ``bound_ms``).
+   this run measured, and ``bound_ms``). The Mamba2 decode step
+   (``mamba2_step``) against its plain version over two steps, at
+   Zamba2-7B's widths (B = 1, 4, 96), Zamba2-1.2B's (B = 4) and both
+   reduced variants' (heads of 32, a state of 16; B = 4), in f32 and bf16: the conv tail bitwise, the f32 state within 2e-6 of its largest
+   entry, the output within 1e-5 (f32) or three bf16 roundings (3 x 2^-7)
+   relative; timed in bf16 at Zamba2-7B's side decode (B = 96) and river
+   decode (B = 4) beside the plain step and its copy into the cache.
 3. Check the port's model on the card against the same model on the CPU on
    a small input (reduced config, f32, no TF32): logits within 1e-4.
 4. Drive the main path at full width: Qwen2.5-0.5B (24 layers, d_model 896,
@@ -89,8 +95,9 @@ Phases, each failing the run on its own failure:
    — a prefill and 8 greedy steps twice, finite and repeatable, and one
    spawn and merge through the engine (qwen2-vl, whose M-RoPE decode the
    engine's ticks do not drive, through the engine's spawn and merge
-   functions), its kernels' launches checked — and one full-size forward
-   of the encoder, hubert-xlarge. Phase 2 also holds both kernels at these
+   functions), its kernels' launches checked (zamba2: one ``mamba2_step``
+   launch per Mamba2 layer step the engine counts) — and one full-size
+   forward of the encoder, hubert-xlarge. Phase 2 also holds both kernels at these
    families' (H, Hkv, D) and times them at zamba2's shapes.
 8. Training. Qwen2.5-0.5B at full width and depth (f32 params and Adam
    moments, bf16 compute, remat "full") trained 30 steps of 8 x 512
@@ -214,6 +221,11 @@ LM_LONG = [(1, 32, 8, 128, 32768), (1, 64, 8, 128, 32768), (1, 32, 1, 64, 32768)
 # The kernels' times before their latest redesign, main-path shapes, bf16,
 # L2 flushed (PERF.md section 6, earlier ms; NVIDIA H100 80GB HBM3, 700.00 W)
 EARLIER_MS = {"synapse_attention": 0.01253, "landmark_score": 0.01128}
+# the Mamba2 decode step: (arch, lanes, reduced) held against the plain
+# step, and the timed rows (Zamba2-7B's side decode, then its river decode)
+MAMBA_CHECKS = [("zamba2-7b", 1, False), ("zamba2-7b", 4, False), ("zamba2-7b", 96, False),
+                ("zamba2-1.2b", 4, False), ("zamba2-1.2b", 4, True), ("zamba2-7b", 4, True)]
+MAMBA_MAIN, MAMBA_RIVER = ("zamba2-7b", 96), ("zamba2-7b", 4)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TIMED_WINDOWS = 5  # main-path windows timed (the first is warm-up), then one profiled
 
@@ -406,6 +418,105 @@ def landmark_row(dev, shape, *, density: bool, inputs, valid=None) -> dict:
         shape=list(shape), dtype="bfloat16", plan=str(plan))
 
 
+def mamba_operands(arch: str, B: int, dtype, g, zero_state: bool = False, reduced: bool = False):
+    """(config, state, small params, maker of in-projected rows) of Mamba2
+    decode steps at ``arch``'s widths (its reduced variant's where
+    ``reduced``) over ``B`` lanes, random from ``g``:
+    the state random, or zeros as a fresh lane's; the parameters in the
+    working type as the serving casts give them, dt in [1e-3, 0.1] through
+    its bias, A = -exp(a_log) in [-16, -1]. Each row gives every third lane
+    from lane 1 the same values, as inactive lanes fed token 0 get, and the
+    last head a dt past softplus's threshold of 20."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_lib
+
+    cfg = get_config(arch, reduced=reduced)
+    dev = g.device
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    u = lambda n: torch.rand(n, generator=g, device=dev)
+    di, nh, W = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_conv_width
+    ch = di + 2 * cfg.ssm_ngroups * cfg.ssm_state_size
+    st = cache_lib.init_mamba2_state(cfg, B, dtype, device=dev)
+    if not zero_state:
+        st.conv.copy_(r(B, W - 1, ch))
+        st.ssm.copy_(r(*st.ssm.shape))
+    p = dict(conv_w=(0.3 * r(W, ch)).to(dtype), conv_b=(0.1 * r(ch)).to(dtype),
+             dt_bias=torch.log(torch.expm1(1e-3 + 0.1 * u(nh))).to(dtype), a_log=torch.log(1 + 15 * u(nh)).to(dtype),
+             d_skip=r(nh).to(dtype), gate_norm=(1 + 0.1 * r(di)).to(dtype))
+    token0 = r(di + ch + nh).to(dtype)
+
+    def row():
+        zx = r(B, di + ch + nh).to(dtype)
+        zx[1::3] = token0
+        zx[:, -1] = 25.0
+        return zx
+    return cfg, st, p, row
+
+
+def mamba_bytes(cfg, B: int, elem: int) -> int:
+    """Bytes one step must move: the f32 state read and written, the conv
+    tail read and written, the in-projected row and the small parameters
+    read, the output written."""
+    di, nh, W = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_conv_width
+    ch = di + 2 * cfg.ssm_ngroups * cfg.ssm_state_size
+    return (2 * B * nh * cfg.ssm_head_dim * cfg.ssm_state_size * 4 + 2 * B * (W - 1) * ch * elem
+            + B * (di + ch + nh) * elem + (W * ch + ch + 3 * nh + di) * elem + B * di * elem)
+
+
+def mamba_row(arch: str, B: int, g) -> dict:
+    """Times of one Mamba2 decode step in bf16, L2 flushed: the kernel
+    (three launches), and the plain step with its copy of the new tail and
+    state into the cache (what the kernel replaces), with the bound of the
+    step's bytes."""
+    from repro_torch.kernels import mamba2_step
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import mamba2
+
+    cfg, st, p, row = mamba_operands(arch, B, torch.bfloat16, g)
+    zx = row()
+
+    def plain():
+        _, conv, ssm = mamba2.decode_plain(zx, st.conv, st.ssm, **p, cfg=cfg)
+        cache_lib.copy_into(st, cache_lib.Mamba2State(conv=conv, ssm=ssm))
+    state_flops = 5 * B * cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_state_size
+    return dict(
+        ms=time_ms(lambda: mamba2_step.mamba2_step(zx, st.conv, st.ssm, **p, eps=cfg.norm_eps)),
+        plain_ms=time_ms(plain),
+        **bound(mamba_bytes(cfg, B, 2), state_flops),
+        shape=[arch, B], dtype="bfloat16")
+
+
+def check_mamba_step(g) -> float:
+    """The Mamba2 decode step against its plain version over two steps at
+    ``MAMBA_CHECKS``, f32 and bf16 (the test's tolerances:
+    ``tests/test_torch_cuda.py::test_mamba2_step_matches_the_plain_step``).
+    Returns the largest output error."""
+    from repro_torch.kernels import mamba2_step
+    from repro_torch.models import mamba2
+
+    worst = 0.0
+    for arch, B, reduced in MAMBA_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg, st, p, row = mamba_operands(arch, B, dtype, g, reduced=reduced)
+            conv_r, ssm_r = st.conv.clone(), st.ssm.clone()
+            for _ in range(2):
+                zx = row()
+                y_r, conv_r, ssm_r = mamba2.decode_plain(zx, conv_r, ssm_r, **p, cfg=cfg)
+                y = mamba2_step.mamba2_step(zx, st.conv, st.ssm, **p, eps=cfg.norm_eps)
+                torch.cuda.synchronize()
+                if not torch.equal(st.conv, conv_r):
+                    raise AssertionError(f"mamba2_step {arch} B={B} {dtype}: the conv tail differs")
+                torch.testing.assert_close(st.ssm, ssm_r, rtol=2e-6, atol=2e-6 * float(ssm_r.abs().max()))
+                rtol = 1e-5 if dtype == torch.float32 else 3 * 2 ** -7
+                torch.testing.assert_close(y.float(), y_r.float(), rtol=rtol,
+                                           atol=1e-5 * float(y_r.float().abs().max()))
+            err = max_err(y, y_r)
+            log(f"check mamba2_step {cfg.name} B={B} dtype={str(dtype)[6:]} max_abs_err={err:.3g} "
+                f"state max_abs_err={max_err(st.ssm, ssm_r):.3g}")
+            worst = max(worst, err)
+    return worst
+
+
 def new_engine():
     """The main path's engine: Qwen2.5-0.5B at full width, random weights
     from seed 0, greedy, the ``MAIN`` settings. Returns (config, engine)."""
@@ -439,7 +550,7 @@ def check_kernels(dev):
         for density in (False, True):
             log(f"plan landmark_score shape={shape} bf16 {'density' if density else 'logits'} mode: "
                 f"{ls.card_plan(dev, B, T, H, Hkv, D, 0, 2, density=density)}")
-    for name in ("synapse_attention", "landmark_score"):
+    for name in ("synapse_attention", "landmark_score", "mamba2_step"):
         log(f"ptxas {name}: {build.ptxas_info(name)}")
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -561,6 +672,12 @@ def check_kernels(dev):
     for sub, shape, density in (("zamba2", LM_ZAMBA, False), ("density", LM_MAIN, True),
                                 ("zamba2_density", LM_ZAMBA, True), ("zamba2_7b_density", LM_Z7, True)):
         recs["landmark_score"][sub] = landmark_row(dev, shape, density=density, inputs=inputs)
+    # the Mamba2 decode step: no TPU kernel, the JAX package's step is jnp
+    recs["mamba2_step"] = dict(
+        name="mamba2_step", route="cuda", source="src/repro_torch/kernels/csrc/mamba2_step.cu",
+        replaces="none (src/repro/models/mamba2.py:mamba2_decode is plain jnp)", max_abs_err=check_mamba_step(g),
+        earlier_ms=None, **mamba_row(*MAMBA_MAIN, g))
+    recs["mamba2_step"]["river"] = mamba_row(*MAMBA_RIVER, g)
     for r in recs.values():
         log("kernel " + json.dumps(r))
     return recs
@@ -644,12 +761,15 @@ def kernel_plan(cfg) -> tuple[int, int]:
     return len(gqa_groups) + (1 if shared else 0), sum(g.count for g in gqa_groups) + shared
 
 
-def check_launches(label: str, counts: dict, cfg, spawns: int, side_ticks: int):
+def check_launches(label: str, counts: dict, cfg, spawns: int, side_ticks: int, mamba_steps: int = 0):
     """The launches ``kernel_plan(cfg)`` implies for the spawns and side
     ticks of a run (for the paper's model: one ``landmark_score`` launch
-    per spawn, one ``synapse_attention`` launch per layer and side tick)."""
+    per spawn, one ``synapse_attention`` launch per layer and side tick),
+    and one ``mamba2_step`` launch per Mamba2 layer step (``mamba_steps``:
+    the engine's count)."""
     per_spawn, per_tick = kernel_plan(cfg)
-    want = {"landmark_score": per_spawn * spawns, "synapse_attention": per_tick * side_ticks}
+    want = {"landmark_score": per_spawn * spawns, "synapse_attention": per_tick * side_ticks,
+            "mamba2_step": mamba_steps}
     if counts != want:
         raise AssertionError(f"{label}: kernel launches {counts}, expected {want} "
                              f"({spawns} spawns, {side_ticks} side ticks)")
@@ -1512,7 +1632,7 @@ def drive_zamba2(card: str) -> dict:
         raise AssertionError(f"zamba2: expected 3 spawns and 3 merges, history={events}")
     if guarded[0] == 0 or eng.stats["overlapped_drains"] == 0:
         raise AssertionError("zamba2: no overlapped post-processing ran under the sync guard")
-    check_launches("zamba2", counts, eng.cfg, events.count("spawn"), side_ticks[0])
+    check_launches("zamba2", counts, eng.cfg, events.count("spawn"), side_ticks[0], eng.stats["mamba_steps"])
     hidden = eng.state.main_hidden
     if not torch.isfinite(hidden).all() or hidden.shape != (1, cfg.d_model):
         raise AssertionError("zamba2: river hidden state is not finite / of the expected shape")
@@ -1731,8 +1851,10 @@ def drive_families(card: str) -> dict:
     """Phase 7: zamba2 at full width and depth, every other decoder family
     at its published widths, the encoder. Returns the kernels' launches
     on zamba2's main run and summed over the other families."""
+    from repro_torch.kernels import ops
+
     zamba = drive_zamba2(card)
-    others = {"landmark_score": 0, "synapse_attention": 0}
+    others = dict.fromkeys(ops.KERNELS, 0)
     for arch, depth in FAMILIES:
         for k, v in drive_family(arch, depth, card).items():
             others[k] += v
@@ -1990,7 +2112,7 @@ def drive_long_context(card: str) -> dict:
     ops.reset_launches()
     out = lc.main(["--full"])
     counts = ops.launch_counts()
-    want = {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"]}
+    want = {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"], "mamba2_step": 0}
     full = get_config("qwen3-8b")
     if (out["layers"], out["d_model"], out["steps"]) != (full.n_layers, full.d_model, 300) or counts != want:
         raise AssertionError(f"long context: {out['layers']} layers, d {out['d_model']}, {out['steps']} steps, "
@@ -2433,7 +2555,7 @@ def drive_long500k(card: str, dev="cuda") -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     counts = ops.launch_counts()
-    want = {"landmark_score": 0, "synapse_attention": cfg.n_layers * LONG500K_STEPS}
+    want = {"landmark_score": 0, "synapse_attention": cfg.n_layers * LONG500K_STEPS, "mamba2_step": 0}
     finite = bool(torch.isfinite(logits).all())
     if counts != want or not finite or tuple(logits.shape) != (B, cfg.vocab_size):
         raise AssertionError(f"long_500k: launches {counts} (want {want}), finite {finite}, logits {logits.shape}")
@@ -2512,7 +2634,7 @@ def main() -> int:
             k.pop(key)
         k.pop("plan", None)
         for sub in ("zamba2", "long_t", "qwen3_8b", "long500k_qwen3_8b", "long500k_qwen1_5", "density",
-                    "zamba2_density", "density_spawn"):
+                    "zamba2_density", "density_spawn", "river"):
             for key in ("bytes", "flops", "plan", "shape", "dtype"):
                 k.get(sub, {}).pop(key, None)
     log(json.dumps({"kernels": kernels}))

@@ -94,6 +94,7 @@ from repro_torch.core.prism import Prism, tree_bytes
 from repro_torch.core.router import CortexRouter
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import ring_append
 from repro_torch.launch import sharding as lane_rules
 from repro_torch.launch.mesh import lane_axis
@@ -102,6 +103,7 @@ from repro_torch.memory import (
 )
 from repro_torch.memory.store import device_put_fn, ready_on_stream
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import mamba2
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.sampler import (
@@ -528,6 +530,9 @@ class CortexEngine:
             # (set below), and the state bytes copied at spawns and
             # blended at merges
             "recurrent_state_bytes": 0, "attn_cache_bytes": 0, "state_copy_bytes": 0, "state_blend_bytes": 0,
+            # Mamba2 layer steps the ticks' decodes issued (each layer of each
+            # decode batch), and those that went through the hand-written step
+            "mamba_steps": 0, "mamba_kernel_steps": 0,
         }
         if self.mesh is not None:
             self.stats["ring_gathers"] = 0  # the all-gathers of the side rings: one per drain
@@ -721,6 +726,10 @@ class CortexEngine:
             self.stats["live_side_lane_ticks"] += n * live
         if self._graphs is not None:
             self._graphs.check(tick_graphs.fingerprint(self.state, self._params))
+        # the Mamba2 steps the decode issues and the kernel's launches, as the
+        # Python runs them (a tick replayed from graphs would run neither; the
+        # graphed ticks have no Mamba2 layer)
+        steps, kernel_steps = mamba2.decode_steps, ops.launch_counts()["mamba2_step"]
         with trace.span("engine.dispatch", ticks=n, rivers=sum(m.active for m in self.mains), sides=live):
             for i in range(n):
                 how = one_tick(
@@ -730,6 +739,8 @@ class CortexEngine:
                 )
                 self.stats["eager_ticks" if how == "eager" else "graph_ticks"] += 1
                 self.stats["graph_captures"] += how == "capture"
+        self.stats["mamba_steps"] += mamba2.decode_steps - steps
+        self.stats["mamba_kernel_steps"] += ops.launch_counts()["mamba2_step"] - kernel_steps
         self.stats["ticks"] += n
         self.stats["tick_dispatches"] += 1
         if n > 1:

@@ -1,6 +1,7 @@
 """Public entry points around the port's kernels, as the JAX package's
 ``repro.kernels.ops`` gives them: the ring append of the engine's token
-rings, the synapse attend, and the landmark density sweep.
+rings, the synapse attend, and the landmark density sweep. ``KERNELS``
+also holds the Mamba2 decode step, which ``models/mamba2.py`` launches.
 
 The CUDA kernels take the true shapes (no padding to tile multiples); on
 a CPU tensor each wrapper runs its plain version.
@@ -13,11 +14,12 @@ from contextvars import ContextVar
 import torch
 
 from repro_torch.kernels import landmark_score as _ls
+from repro_torch.kernels import mamba2_step as _m2
 from repro_torch.kernels import synapse_attention as _sa
 from repro_torch.kernels.build import build_all
 from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (finite mask shared with the kernels and the sampler)
 
-KERNELS = {"synapse_attention": _sa.KERNEL, "landmark_score": _ls.KERNEL}
+KERNELS = {"synapse_attention": _sa.KERNEL, "landmark_score": _ls.KERNEL, "mamba2_step": _m2.KERNEL}
 
 # where synapse_attend's one-launch path goes instead, inside an
 # ``attend_break`` scope (a tick's graph capture cuts there)

@@ -282,7 +282,9 @@ def _serve(args) -> dict:
               f"{engine.stats['spawns']} spawns, "
               f"{engine.stats['spawns_dropped']} spawns dropped (no free side lane), "
               f"{engine.stats['graph_ticks']} graph ticks, {engine.stats['eager_ticks']} eager ticks, "
-              f"{engine.stats['graph_captures']} graph captures")
+              f"{engine.stats['graph_captures']} graph captures, "
+              f"{engine.stats['mamba_kernel_steps']} of {engine.stats['mamba_steps']} Mamba2 layer steps "
+              f"through the hand-written step")
     return m
 
 

@@ -19,6 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import mamba2_step
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, lane_head_placements, per_shard, rms_norm, split_mesh
@@ -158,20 +159,45 @@ def _forward_core(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm, *, 
     return y, conv_tail, carry
 
 
+# the steps ``mamba2_decode`` issued in this process, each layer of each
+# decode batch once (the engine's ``mamba_steps`` is its change over a dispatch)
+decode_steps = 0
+
+
 def mamba2_decode(p, cfg: ModelConfig, x, state: cache_lib.Mamba2State):
-    """Single-token step. x: [B,1,dm]. Returns (y [B,1,dm], new state)."""
+    """Single-token step. x: [B,1,dm]. Returns (y [B,1,dm], new state).
+    On the card the step writes ``state``'s own tensors and returns
+    ``state`` itself (the reference is pure; the port updates in place so
+    that the SSD state is read and written once a step)."""
+    global decode_steps
+    decode_steps += 1
     y, conv, ssm = _on_lanes(functools.partial(_decode_core, cfg=cfg), p, x[:, 0] @ p["w_in"], state.conv,
                              state.ssm)
-    return (y @ p["w_out"])[:, None, :], cache_lib.Mamba2State(conv=conv, ssm=ssm)
+    new = state if conv is state.conv and ssm is state.ssm else cache_lib.Mamba2State(conv=conv, ssm=ssm)
+    return (y @ p["w_out"])[:, None, :], new
 
 
 def _decode_core(zxbcdt, conv_state, ssm_state, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm, *,
                  cfg: ModelConfig, per_lane: bool):
     """One token of conv, SSD and gate: (y [B,di] before the
-    out-projection, the new conv tail, the new SSD state)."""
+    out-projection, the new conv tail, the new SSD state). A CUDA tensor
+    takes the hand-written step (:mod:`repro_torch.kernels.mamba2_step`),
+    which writes the new tail and state into ``conv_state`` and
+    ``ssm_state`` and returns them; any other the plain version."""
     if per_lane:
         conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm = (
             t[0] for t in (conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm))
+    if zxbcdt.is_cuda:
+        y = mamba2_step.mamba2_step(zxbcdt, conv_state, ssm_state, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm,
+                                    eps=cfg.norm_eps)
+        return y, conv_state, ssm_state
+    return decode_plain(zxbcdt, conv_state, ssm_state, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm, cfg=cfg)
+
+
+def decode_plain(zxbcdt, conv_state, ssm_state, conv_w, conv_b, dt_bias, a_log, d_skip, gate_norm, *,
+                 cfg: ModelConfig):
+    """The plain step on any device: what the kernel computes, with new
+    tensors for the tail and the state (the inputs are left as they were)."""
     B = zxbcdt.shape[0]
     di, ds, nh, dh, G = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_ngroups
     z, xbc, dt = _split_in(cfg, zxbcdt)

@@ -717,7 +717,8 @@ def _decode_run(pg, cg, cfg: ModelConfig, grp: LayerGroup, spec: CacheSpec, seg:
             h = rms_norm(_with_extra(x, extra), p_layer["ln"], cfg.norm_eps)
             extra = None
             y, state = mamba2.mamba2_decode(p_layer["mixer"], cfg, h, cache)
-            cache_lib.copy_into(cache, state)
+            if state is not cache:  # the card's step wrote the cache in place
+                cache_lib.copy_into(cache, state)
             x = _radd(x, y)
         else:
             h = rms_norm(x, p_layer["ln1"], cfg.norm_eps)

@@ -604,8 +604,8 @@ def test_zamba2_engine_on_card_equals_the_cpu(card):
     f32: the pipelined engine on the card, every window under the sync
     guard, against the serial engine on the CPU — the same greedy streams
     and merges; a spawn is one landmark_score launch (the shared stack
-    folded into one sweep) and a side tick one synapse_attention launch per
-    shared invocation."""
+    folded into one sweep), a side tick one synapse_attention launch per
+    shared invocation, and every Mamba2 layer step one mamba2_step launch."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -635,6 +635,7 @@ def test_zamba2_engine_on_card_equals_the_cpu(card):
     assert [e["event"] for e in got.history] == [e["event"] for e in ref.history] == ["spawn", "merge"]
     assert counts["landmark_score"] == 1
     assert counts["synapse_attention"] > 0 and counts["synapse_attention"] % cfg.n_shared_attn_invocations == 0
+    assert counts["mamba2_step"] == got.stats["mamba_kernel_steps"] == got.stats["mamba_steps"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -644,7 +645,8 @@ def test_zamba2_engine_on_card_equals_the_cpu(card):
 def test_reduced_train_step_on_card(card, arch):
     """Two steps at the reduced config in bf16: finite losses, every
     parameter leaf and Adam moment on the card, the params changed, and
-    neither Cortex kernel launched (the train forward attends plainly)."""
+    no hand-written kernel launched (the train forward attends and scans
+    plainly)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, batch_to, make_batch
     from repro_torch.models import model as tmodel
@@ -659,7 +661,7 @@ def test_reduced_train_step_on_card(card, arch):
     for i in range(2):
         state, m = step(state, batch_to(make_batch(cfg, DataConfig(seq_len=64, batch_size=4, seed=i)), card))
         assert torch.isfinite(m["loss"]) and m["loss"].device.type == "cuda"
-    assert ops.launch_counts() == {"synapse_attention": 0, "landmark_score": 0}
+    assert ops.launch_counts() == {"synapse_attention": 0, "landmark_score": 0, "mamba2_step": 0}
     for tree in (state.params, state.opt.m, state.opt.v):
         assert all(a.is_cuda for a in tmodel.tree_leaves(tree))
     assert state.opt.step.is_cuda and int(state.step) == 2
@@ -779,7 +781,8 @@ def test_long_context_memory_is_constant_on_card(card):
     # freed now, not by a collection in the middle of the decode
     gc.collect()
     out = long_context_synapse.main(["--device", "cuda"])
-    assert ops.launch_counts() == {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"]}
+    assert ops.launch_counts() == {"landmark_score": 0, "synapse_attention": out["layers"] * out["steps"],
+                                   "mamba2_step": 0}
     assert out["memory_allocated_step10"] == out["memory_allocated_last"] > 0
     assert out["synapse_bytes"] == out["synapse_bytes_step1"] == out["synapse_bytes_last"]
     assert out["logits_finite"] and out["lm_count"] == out["spec"]["n_landmarks"]
@@ -833,6 +836,41 @@ def test_lane_group_batch_server_on_card(card, lane_mesh, pipeline):
     cfg, prism, tok = _lane_setup(card)
     got = cs.lane_batch(prism.params, cfg, tok, lane_mesh, pipeline, n_tokens=12)
     assert got == cs.lane_batch(prism.params, cfg, tok, None, pipeline, n_tokens=12)
+
+
+def test_lane_group_of_one_zamba2_engine_equals_plain_on_card(card, lane_mesh):
+    """A reduced zamba2-7b engine on the lane group of one: ``local_map``
+    hands the Mamba2 step each rank's block of the caches, which the
+    kernel writes in place (or a redistributed copy, which the decode
+    copies back). The streams, the history and every side cache equal the
+    un-meshed engine's bitwise, and every Mamba2 layer step of both goes
+    through the kernel."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving.sampler import SamplingParams
+
+    ops.build_kernels()
+    cfg = get_config("zamba2-7b", reduced=True)
+    prism = Prism(tmodel.init_params(cfg, seed=0, device=card), cfg, device=card)
+    runs = {}
+    for name, mesh in (("plain", None), ("lanes", lane_mesh)):
+        ops.reset_launches()
+        eng = CortexEngine(prism, ByteTokenizer(cfg.vocab_size), n_main=1, max_side=2, main_capacity=128,
+                           inject_tokens=8, theta=-1.0, side_max_steps=8, sampling=SamplingParams(greedy=True),
+                           sync_every=4, device=card, mesh=mesh)
+        eng.submit("hi [TASK: check it] ok", lane=0)
+        eng.run(24)
+        caches = [t.full_tensor() if isinstance(t, DTensor) else t for t in eng.state.side_caches.tensors()]
+        assert ops.launch_counts()["mamba2_step"] == eng.stats["mamba_kernel_steps"] == eng.stats["mamba_steps"] > 0
+        runs[name] = (eng.mains[0].tokens, [s.tokens for s in eng.sides], [e["event"] for e in eng.history], caches)
+    (tok_p, sides_p, hist_p, caches_p), (tok_l, sides_l, hist_l, caches_l) = runs["plain"], runs["lanes"]
+    assert tok_l == tok_p and sides_l == sides_p and hist_l == hist_p == ["spawn", "merge"]
+    assert len(caches_l) == len(caches_p) and all(torch.equal(a, b) for a, b in zip(caches_l, caches_p))
 
 
 def test_piece_attend_local_path_launches_the_kernel_once(card):
@@ -1065,3 +1103,154 @@ def test_graphed_window_peak_memory_is_the_eager_one_plus_the_static_buffers(car
         torch.cuda.empty_cache()
     print(f"window peak above the weights: graphed {peaks[True]} B, eager {peaks[False]} B, static {static} B")
     assert peaks[True] <= peaks[False] + static
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 decode step (kernels/mamba2_step.py) against the plain step,
+# at the published widths: zamba2-7b (112 heads, 2 B/C groups) and
+# zamba2-1.2b (64 heads, 1 group); and at their reduced variants' (heads
+# of 32, a state of 16)
+# ---------------------------------------------------------------------------
+def _mamba_operands(arch, B, dtype, dev, zero_state=False, reduced=False):
+    """``chip_smoke.mamba_operands`` from a generator seeded 0 on ``dev``."""
+    return _smoke().mamba_operands(arch, B, dtype, torch.Generator(device=dev).manual_seed(0), zero_state, reduced)
+
+
+@pytest.mark.parametrize("arch, B, reduced", [("zamba2-7b", 1, False), ("zamba2-7b", 4, False), ("zamba2-7b", 96, False),
+                                              ("zamba2-1.2b", 4, False), ("zamba2-1.2b", 4, True),
+                                              ("zamba2-7b", 4, True)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("zero_state", [False, True], ids=["state", "zero_state"])
+def test_mamba2_step_matches_the_plain_step(card, arch, B, reduced, dtype, zero_state):
+    """Four consecutive steps, each against the plain step from the plain
+    step's own previous state. The conv tail is moved, not computed:
+    bitwise. The f32 state takes the plain step's products and sums one by
+    one, but for the conv's four-term sum, whose order the plain einsum
+    leaves to cuBLAS: ~1e-6 relative, measured against the state's
+    largest entry. The output sums y = H C in another order (f32 ulps); in
+    bf16 that can flip the rounding of y, of y * silu(z) and of the normed
+    output, one bf16 ulp (at most 2^-7 relative) each."""
+    from repro_torch.kernels import mamba2_step
+    from repro_torch.models import mamba2
+
+    cfg, st, p, row = _mamba_operands(arch, B, dtype, card, zero_state, reduced)
+    conv_r, ssm_r = st.conv.clone(), st.ssm.clone()
+    for _ in range(4):
+        zx = row()
+        y_r, conv_r, ssm_r = mamba2.decode_plain(zx, conv_r, ssm_r, **p, cfg=cfg)
+        before = mamba2_step.KERNEL.launches
+        y = mamba2_step.mamba2_step(zx, st.conv, st.ssm, **p, eps=cfg.norm_eps)
+        torch.cuda.synchronize()
+        assert mamba2_step.KERNEL.launches == before + 1
+        assert y.dtype == dtype and y.shape == y_r.shape
+        assert torch.equal(st.conv, conv_r)
+        torch.testing.assert_close(st.ssm, ssm_r, rtol=2e-6, atol=2e-6 * float(ssm_r.abs().max()))
+        rtol = 1e-5 if dtype == torch.float32 else 3 * 2 ** -7
+        torch.testing.assert_close(y.float(), y_r.float(), rtol=rtol, atol=1e-5 * float(y_r.float().abs().max()))
+
+
+def test_mamba2_step_writes_the_cache_in_place_and_rolls_the_tail(card):
+    """The state and tail keep their addresses; the tail loses its oldest
+    row and takes the new raw xBC row last; the model's decode hands back
+    the cache's own state (no copy after it)."""
+    from repro_torch.kernels import mamba2_step
+    from repro_torch.models import mamba2
+
+    cfg, st, p, row = _mamba_operands("zamba2-7b", 4, torch.bfloat16, card)
+    ptrs = (st.conv.data_ptr(), st.ssm.data_ptr())
+    old, zx = st.conv.clone(), row()
+    di, ch = cfg.ssm_d_inner, st.conv.shape[2]
+    mamba2_step.mamba2_step(zx, st.conv, st.ssm, **p, eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    assert (st.conv.data_ptr(), st.ssm.data_ptr()) == ptrs
+    assert torch.equal(st.conv[:, :-1], old[:, 1:]) and torch.equal(st.conv[:, -1], zx[:, di:di + ch])
+    mixer = mamba2.mamba2_init(torch.Generator(device=card).manual_seed(1), cfg, torch.bfloat16, card)
+    mixer = {k: v.to(torch.bfloat16) for k, v in mixer.items()}  # as the serving casts give them
+    x = torch.randn((4, 1, cfg.d_model), device=card).to(torch.bfloat16)
+    y, new = mamba2.mamba2_decode(mixer, cfg, x, st)
+    assert new is st and (st.conv.data_ptr(), st.ssm.data_ptr()) == ptrs and y.shape == (4, 1, cfg.d_model)
+
+
+def test_mamba2_step_replays_from_a_cuda_graph_bitwise(card):
+    """One step captured into a CUDA graph and replayed from the same
+    state equals the eager step bitwise: the wrapper allocates from the
+    graph's pool, launches on the capturing stream and never syncs."""
+    from repro_torch.kernels import mamba2_step
+
+    cfg, st, p, row = _mamba_operands("zamba2-7b", 8, torch.bfloat16, card)
+    zx = row()
+    conv0, ssm0 = st.conv.clone(), st.ssm.clone()
+    y_e = mamba2_step.mamba2_step(zx, st.conv, st.ssm, **p, eps=cfg.norm_eps)
+    conv_e, ssm_e = st.conv.clone(), st.ssm.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g = mamba2_step.mamba2_step(zx, st.conv, st.ssm, **p, eps=cfg.norm_eps)
+    for _ in range(2):
+        st.conv.copy_(conv0)
+        st.ssm.copy_(ssm0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_g, y_e) and torch.equal(st.conv, conv_e) and torch.equal(st.ssm, ssm_e)
+
+
+def _decode_mamba_ops(prof):
+    """(device operations launched inside ``cortex.decode.mamba`` ranges,
+    ``mamba2_*`` kernels among the profile's device operations). A device
+    operation's launch is the runtime call that shares its id; a
+    ``mamba2_*`` kernel whose launch is not found counts as inside (only
+    the Mamba2 layers launch it)."""
+    from torch.autograd import DeviceType
+
+    ev = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in ev if e.name == "cortex.decode.mamba"]
+    runtime = {e.id: e.time_range.start for e in ev if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    inside = 0
+    for e in dev:
+        t = runtime.get(e.id)
+        inside += any(a <= t <= b for a, b in ranges) if t is not None else "mamba2_" in e.name
+    return inside, sum("mamba2_" in e.name for e in dev)
+
+
+def test_reduced_zamba2_engine_steps_every_mamba_layer_through_the_kernel(card):
+    """A reduced zamba2-7b engine (heads of 32, a state of 16, G = 2), bf16,
+    as serve runs it on the card: every Mamba2 layer step of its ticks goes
+    through the kernel (the engine's counters), and a traced decode
+    launches at most 20 device operations a Mamba2 layer call, three of
+    them the kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CortexEngine
+    from repro_torch.core.prism import Prism
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving.sampler import SamplingParams
+
+    ops.build_kernels()
+    cfg = get_config("zamba2-7b", reduced=True)
+    eng = CortexEngine(Prism(tmodel.init_params(cfg, seed=0, device=card), cfg, device=card),
+                       ByteTokenizer(cfg.vocab_size), n_main=1, max_side=2, main_capacity=128, inject_tokens=8,
+                       theta=-1.0, side_max_steps=8, sampling=SamplingParams(greedy=True), sync_every=4, device=card)
+    eng.submit("hi [TASK: check it] ok", lane=0)
+    eng.run(24)
+    assert eng.stats["mamba_kernel_steps"] == eng.stats["mamba_steps"] > 0
+    layers = sum(g.count for g in cfg.layer_groups() if g.kind == "mamba2")
+    st = eng.state
+    step = lambda: tmodel.decode_step(eng._params, eng.cfg, {"tokens": st.main_tok, "positions": st.main_pos},
+                                      st.main_caches, spec=eng.main_spec)
+    step()
+    torch.cuda.synchronize()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+        trace.clear()
+    inside, kernels = _decode_mamba_ops(prof)
+    assert kernels == 3 * layers
+    assert 3 * layers <= inside <= 20 * layers

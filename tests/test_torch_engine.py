@@ -124,11 +124,12 @@ def test_spawn_merge_history_equal(reference, port):
 def test_dispatch_and_sync_accounting_equal(reference, port):
     eng, _ = port
     # the port's own counters (the reference has none): spawns, the side
-    # lanes decoded and how ticks were issued, held to the reference's
-    # history and lane count
+    # lanes decoded, how ticks were issued and the Mamba2 layer steps, held
+    # to the reference's history and lane count
     own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks",
            "graph_ticks", "eager_ticks", "graph_captures",
-           "recurrent_state_bytes", "attn_cache_bytes", "state_copy_bytes", "state_blend_bytes"}
+           "recurrent_state_bytes", "attn_cache_bytes", "state_copy_bytes", "state_blend_bytes",
+           "mamba_steps", "mamba_kernel_steps"}
     for key, val in eng.stats.items():
         if key not in own:
             assert val == reference.stats[key], key
@@ -141,6 +142,7 @@ def test_dispatch_and_sync_accounting_equal(reference, port):
     assert eng.stats["graph_ticks"] == eng.stats["graph_captures"] == 0
     assert eng.stats["side_lane_ticks"] % KW["max_side"] == 0
     assert eng.stats["tick_dispatches"] == -(-N_TICKS // KW["sync_every"])
+    assert eng.stats["mamba_steps"] == eng.stats["mamba_kernel_steps"] == 0  # no Mamba2 layer
 
 
 def test_main_caches_agree_after_run(reference, port):

@@ -122,11 +122,12 @@ def test_engine_streams_history_and_gates_equal_jax(pair):
             assert b["accepted"] == a["accepted"] and b["thought"] == a["thought"]
             assert abs(b["gate_score"] - a["gate_score"]) < GATE_TOL
     # the port's own counters (the reference has none): spawns, the side
-    # lanes decoded, how ticks were issued and the bytes of caches and
-    # states, held to the reference's history
+    # lanes decoded, how ticks were issued, the bytes of caches and states
+    # and the Mamba2 layer steps, held to the reference's history
     own = {"spawns", "spawns_dropped", "side_lane_ticks", "live_side_lane_ticks",
            "graph_ticks", "eager_ticks", "graph_captures",
-           "recurrent_state_bytes", "attn_cache_bytes", "state_copy_bytes", "state_blend_bytes"}
+           "recurrent_state_bytes", "attn_cache_bytes", "state_copy_bytes", "state_blend_bytes",
+           "mamba_steps", "mamba_kernel_steps"}
     for key, val in eng.stats.items():
         if key not in own:
             assert val == ref.stats[key], key
@@ -142,6 +143,13 @@ def test_engine_streams_history_and_gates_equal_jax(pair):
     hist = eng.stats["window_hist"]
     assert eng.stats["eager_ticks"] == sum(n * c for n, c in hist.items()) > 0
     assert eng.stats["graph_ticks"] == eng.stats["graph_captures"] == 0
+    # each Mamba2 layer of the river's decode every tick and of the sides'
+    # on the ticks that step them; the CPU takes the plain step
+    layers = sum(g.count for g in eng.cfg.layer_groups() if g.kind == "mamba2")
+    side_ticks = eng.stats["side_lane_ticks"] // eng.max_side
+    assert eng.stats["mamba_steps"] == layers * (eng.stats["eager_ticks"] + side_ticks)
+    assert (eng.stats["mamba_steps"] > 0) == (eng.cfg.block_kind == "mamba2")
+    assert eng.stats["mamba_kernel_steps"] == 0
 
 
 def test_engine_caches_and_per_agent_bytes_equal_jax(pair):
