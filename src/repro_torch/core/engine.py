@@ -468,11 +468,6 @@ class CortexEngine:
         side_spec = side_spec or model_lib.CacheSpec(
             kind="synapse", n_landmarks=64, window=64, n_inject=inject_tokens
         )
-        if self.mesh is not None and side_spec.policy.attend_impl == "kernel":
-            # each rank attends over its own lanes: piece_attend's local
-            # path is the same one kernel launch, so streams stay bitwise
-            side_spec = dataclasses.replace(
-                side_spec, policy=dataclasses.replace(side_spec.policy, attend_impl="piece"))
         self.side_spec = side_spec
         self.n_main, self.max_side = n_main, max_side
         self.mains = [AgentView(f"main{i}", i, "main") for i in range(n_main)]
@@ -565,7 +560,7 @@ class CortexEngine:
         # on the card, with no lane group and layer kinds proven capture-safe,
         # ticks replay from CUDA graphs (core/tick_graphs.py); None: eager
         self._graphs = (tick_graphs.TickGraphs(self.device)
-                        if tick_graphs.engages(cfg, self.side_spec, self.device, self.mesh) else None)
+                        if tick_graphs.engages(cfg, self.device, self.mesh) else None)
 
     @property
     def lane_mesh_shape(self) -> tuple[int, ...] | None:

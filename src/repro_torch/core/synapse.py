@@ -9,8 +9,9 @@ Port of the JAX package's ``repro.core.synapse``. Two modes:
    maxmin (farthest-point) term.
 2. ``synapse_decode``: the same policy run online during decode — a recent
    window ring plus a landmark buffer with hybrid-score eviction; the attend
-   is the ``synapse_attention`` kernel (``kernels.ops.synapse_attend``
-   routes it on the policy). Caches are updated IN PLACE.
+   is ``core.synapse_sharded.piece_attend``, which owns it: one
+   ``synapse_attention`` launch with no token axis. Caches are updated IN
+   PLACE.
 """
 from __future__ import annotations
 
@@ -35,16 +36,6 @@ class SynapsePolicy:
     alpha: float = 0.5        # density vs coverage blend
     score_ema: float = 0.99   # per-step decay of accumulated attention mass
     coverage_cap: float = 4.0 # maxmin distances saturate here (normalized units)
-    # decode attend: "kernel" = one fused ``synapse_attention`` launch over
-    # the concatenated [landmarks; window; inject] set (the reference's
-    # "pallas"); "piece" = ``synapse_sharded.piece_attend``, the token-sharded
-    # flash-decode, whose local path is the same launch. A live shard axis
-    # always takes "piece".
-    attend_impl: str = "kernel"
-    # axis the synapse token dims are split over (None = local); the lane
-    # group keeps it None: lanes are split across ranks, each lane's tokens
-    # stay on one
-    shard_axis: str | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +69,7 @@ def kernel_density(q, keys, valid, scale: float | None = None):
     valid-masked softmax over T and its sum over heads, and writes only
     [B,T]. With a token axis live, the plain reduction, as in the
     reference."""
-    if sharded.get_shard_axis() is not None:
+    if sharded.current_context().axis is not None:
         return attention_density(q, keys, valid, scale)
     density, _ = ops.landmark_score(q, keys, None, valid, scale=scale)
     return density
@@ -244,11 +235,11 @@ def synapse_decode(
     win_valid = torch.arange(W, device=dev)[None, :] < torch.clamp(cache.win_count + 1, max=W)[:, None]
     inj_valid = torch.arange(J, device=dev)[None, :] < cache.inj_count[:, None]
     scale = 1.0 / (q1.shape[-1] ** 0.5) if cfg.attn_scale is None else cfg.attn_scale
-    out, masses = ops.synapse_attend(
+    out, masses = sharded.piece_attend(
         q1,
         [(cache.lm_k, cache.lm_v), (cache.win_k, cache.win_v), (cache.inj_k, cache.inj_v)],
         [lm_valid, win_valid, inj_valid],
-        scale=scale, policy=policy,
+        scale,
     )
     y = out.reshape(B, -1) @ attn_params["wo"]
 

@@ -6,19 +6,19 @@ Port of the JAX package's ``repro.core.synapse_sharded``:
   read. With no token axis live they are the exact scatter and gather
   (the engine's hot path); with one live, the one-hot select and
   contraction, elementwise over the token dimension.
-* ``piece_attend`` — the attend over the ``[landmarks; window; inject]``
-  pieces. With no token axis it is ONE ``synapse_attention`` launch over
-  the concatenated pieces (the hand-written kernel on the card, its plain
-  version on the CPU), so the lane-sharded engine, which routes its side
-  attend here, stays bitwise equal to the plain engine. With a token axis
-  each rank holds a token shard of every piece: the flash-decode combine
-  takes the local max and sum in plain torch, as the reference's
-  ``shard_map`` body does in plain ``jnp``, and all-reduces the max, the
-  sum and the outputs over the group.
+* ``piece_attend`` — the side attend, every side layer's on every tick:
+  the attend over the ``[landmarks; window; inject]`` pieces, which
+  :func:`cat_pieces` concatenates. With no token axis it is ONE
+  ``synapse_attention`` launch over the concatenated pieces (the
+  hand-written kernel on the card, its plain version on the CPU), or,
+  inside an :func:`attend_break` scope, the break a tick's graph capture
+  cuts at. With a token axis each rank holds a token shard of every piece:
+  the flash-decode combine takes the local max and sum in plain torch, as
+  the reference's ``shard_map`` body does in plain ``jnp``, and
+  all-reduces the max, the sum and the outputs over the group.
 
 Shard placement is scoped, not global: callers pass a
-:class:`ShardContext` (the engine threads one through its
-``SynapsePolicy``) or enter :func:`token_sharding`.
+:class:`ShardContext` or enter :func:`token_sharding`.
 """
 from __future__ import annotations
 
@@ -29,6 +29,8 @@ from contextvars import ContextVar
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
+
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
@@ -45,6 +47,9 @@ class ShardContext:
 
 
 _CTX: ContextVar[ShardContext] = ContextVar("synapse_shard_ctx", default=ShardContext())
+# where piece_attend's one-launch path goes instead, inside an
+# ``attend_break`` scope (a tick's graph capture cuts there)
+_BREAK: ContextVar = ContextVar("synapse_attend_break", default=None)
 
 
 @contextlib.contextmanager
@@ -58,12 +63,20 @@ def token_sharding(axis: str | None, mesh=None):
         _CTX.reset(token)
 
 
+@contextlib.contextmanager
+def attend_break(fn):
+    """Within the scope, :func:`piece_attend`'s one-launch path calls
+    ``fn(q, pieces, valids, scale)`` in its place, which returns what that
+    path returns; restores the previous break on exit, on error too."""
+    token = _BREAK.set(fn)
+    try:
+        yield
+    finally:
+        _BREAK.reset(token)
+
+
 def current_context() -> ShardContext:
     return _CTX.get()
-
-
-def get_shard_axis() -> str | None:
-    return _CTX.get().axis
 
 
 def _resolve(ctx: ShardContext | None) -> ShardContext:
@@ -109,22 +122,35 @@ def _group(mesh):
     return getattr(mesh, "group", mesh)
 
 
+def cat_pieces(pieces, valids, out=None):
+    """The ``[landmarks; window; inject]`` key set: pieces [(k_i, v_i)] with
+    k_i/v_i [B,T_i,Hkv,D] and valids [(B,T_i)] -> (keys, values, valid)
+    concatenated over T. ``out``: (keys, values, valid) buffers of those
+    shapes to write into, returned."""
+    keys, values, valid = out or (None, None, None)
+    return (torch.cat([k for k, _ in pieces], dim=1, out=keys),
+            torch.cat([v for _, v in pieces], dim=1, out=values),
+            torch.cat(list(valids), dim=1, out=valid))
+
+
 def piece_attend(q, pieces, valids, scale, *, ctx: ShardContext | None = None):
-    """Flash-decode attend over token-sharded (k, v) pieces.
+    """The side attend over [landmarks; window; inject] (k, v) pieces.
 
     q: [B,H,D]; pieces: [(k_i, v_i)] with k_i/v_i [B,T_i,Hkv,D] (this rank's
     token shard when an axis is live); valids: [(B,T_i)] bools.
+    With a live token axis, the flash-decode combine over the group; else,
+    inside an :func:`attend_break` scope, the break; else ONE
+    ``ops.synapse_attention`` launch over :func:`cat_pieces`.
     Returns (out [B,H,D], masses [(B,T_i)] — per-key probability mass,
     summed over heads, of this rank's keys).
     """
-    from repro_torch.kernels import ops  # deferred: ops routes back here
-
     c = _resolve(ctx)
     sizes = [k.shape[1] for k, _ in pieces]
     if c.axis is None:
-        k_all = torch.cat([k for k, _ in pieces], dim=1)
-        v_all = torch.cat([v for _, v in pieces], dim=1)
-        valid_all = torch.cat(list(valids), dim=1)
+        brk = _BREAK.get()
+        if brk is not None:
+            return brk(q, pieces, valids, scale)
+        k_all, v_all, valid_all = cat_pieces(pieces, valids)
         out, mass = ops.synapse_attention(q, k_all, v_all, valid_all, scale=scale)
         return out, list(torch.split(mass, sizes, dim=1))
     if c.mesh is None:
@@ -133,9 +159,7 @@ def piece_attend(q, pieces, valids, scale, *, ctx: ShardContext | None = None):
     B, H, D = q.shape
     Hkv = pieces[0][0].shape[2]
     G = H // Hkv
-    k_loc = torch.cat([k for k, _ in pieces], dim=1)
-    v_loc = torch.cat([v for _, v in pieces], dim=1)
-    valid_loc = torch.cat(list(valids), dim=1)
+    k_loc, v_loc, valid_loc = cat_pieces(pieces, valids)
     qg = q.reshape(B, Hkv, G, D)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_loc).float() * scale
     s = torch.where(valid_loc[:, None, None, :], s, torch.full_like(s, NEG_INF))

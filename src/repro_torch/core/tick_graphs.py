@@ -39,6 +39,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import synapse_sharded as sharded
 from repro_torch.kernels import ops
 
 # (block kind, mlp) of the layer groups whose decode a test on the card
@@ -47,15 +48,12 @@ from repro_torch.kernels import ops
 CAPTURED_LAYERS = frozenset({("attn", "dense")})
 
 
-def engages(cfg, side_spec, device, mesh) -> bool:
+def engages(cfg, device, mesh) -> bool:
     """Whether an engine ticks from graphs: on a CUDA device, with no lane
-    group, the side attend through the one-launch path, and only layer
-    kinds in :data:`CAPTURED_LAYERS` (grouped-query attention, no shared
-    block)."""
-    policy = side_spec.policy
+    group, and only layer kinds in :data:`CAPTURED_LAYERS` (grouped-query
+    attention, no shared block)."""
     return (torch.device(device).type == "cuda" and mesh is None and cfg.attn_kind == "gqa"
-            and cfg.shared_attn_every == 0 and all((g.kind, g.mlp) in CAPTURED_LAYERS for g in cfg.layer_groups())
-            and policy.attend_impl == "kernel" and policy.shard_axis is None)
+            and cfg.shared_attn_every == 0 and all((g.kind, g.mlp) in CAPTURED_LAYERS for g in cfg.layer_groups()))
 
 
 def fingerprint(st, params) -> tuple:
@@ -110,11 +108,9 @@ class AttendBuffers:
         )
 
     def fill(self, q, pieces, valids):
-        """The concatenation ``ops.synapse_attend`` makes, into the buffers."""
+        """The concatenation ``piece_attend`` makes, into the buffers."""
         self.q.copy_(q)
-        torch.cat([k for k, _ in pieces], dim=1, out=self.keys)
-        torch.cat([v for _, v in pieces], dim=1, out=self.values)
-        torch.cat(list(valids), dim=1, out=self.valid)
+        sharded.cat_pieces(pieces, valids, out=(self.keys, self.values, self.valid))
 
     def launch(self, scale: float):
         """The kernel through its wrapper, looked up at each call (so that a
@@ -179,7 +175,7 @@ class CudaGraphs:
 
 class _Capture:
     """A tick being captured: opens a piece, cuts it at the river's end and
-    at each kernel call (``attend``, the ``ops.attend_break`` hook).
+    at each kernel call (``attend``, the ``synapse_sharded.attend_break`` hook).
     ``steps``: each piece's graph and the kernel call that follows it,
     (AttendBuffers, scale), or None (after the river's piece and the last)."""
 
@@ -271,7 +267,7 @@ class TickGraphs:
             run = _Capture(self._backend, generators, self._buffers)
             run.begin()
             try:
-                with ops.attend_break(run.attend):
+                with sharded.attend_break(run.attend):
                     body(self.cursor, run.cut)
                 run.end()
             except BaseException:

@@ -1,15 +1,12 @@
 """Public entry points around the port's kernels, as the JAX package's
 ``repro.kernels.ops`` gives them: the ring append of the engine's token
-rings, the synapse attend, and the landmark density sweep. ``KERNELS``
+rings, the synapse attention, and the landmark density sweep. ``KERNELS``
 also holds the Mamba2 decode step, which ``models/mamba2.py`` launches.
 
 The CUDA kernels take the true shapes (no padding to tile multiples); on
 a CPU tensor each wrapper runs its plain version.
 """
 from __future__ import annotations
-
-import contextlib
-from contextvars import ContextVar
 
 import torch
 
@@ -20,10 +17,6 @@ from repro_torch.kernels.build import build_all
 from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (finite mask shared with the kernels and the sampler)
 
 KERNELS = {"synapse_attention": _sa.KERNEL, "landmark_score": _ls.KERNEL, "mamba2_step": _m2.KERNEL}
-
-# where synapse_attend's one-launch path goes instead, inside an
-# ``attend_break`` scope (a tick's graph capture cuts there)
-_BREAK: ContextVar = ContextVar("synapse_attend_break", default=None)
 
 
 def build_kernels() -> dict[str, str]:
@@ -59,49 +52,6 @@ def synapse_attention(q, keys, values, valid, *, scale: float | None = None, out
     return _sa.synapse_attention(q, keys, values, valid, scale=scale, out=out, mass=mass)
 
 
-@contextlib.contextmanager
-def attend_break(fn):
-    """Within the scope, :func:`synapse_attend`'s one-launch path calls
-    ``fn(q, pieces, valids, scale)`` in its place, which returns what that
-    path returns; restores the previous break on exit, on error too."""
-    token = _BREAK.set(fn)
-    try:
-        yield
-    finally:
-        _BREAK.reset(token)
-
-
-def synapse_attend(q, pieces, valids, *, scale: float | None = None, policy=None):
-    """Attend over [landmarks; window; inject] k/v pieces, routed on the
-    ``SynapsePolicy``: a live token-shard axis (``policy.shard_axis``, or an
-    enclosing ``synapse_sharded.token_sharding`` scope) or
-    ``policy.attend_impl == "piece"`` goes to ``synapse_sharded.piece_attend``;
-    anything else concatenates the pieces, makes ONE
-    :func:`synapse_attention` call and splits the mass back per piece (or,
-    inside an :func:`attend_break` scope, hands them to the break). With
-    no axis both are that one launch. Returns (out [B,H,D], masses — one
-    [B,T_i] per piece)."""
-    from repro_torch.core import synapse_sharded as sharded  # deferred: core imports this module
-
-    ctx = sharded.current_context()
-    p_axis = getattr(policy, "shard_axis", None)
-    if p_axis is not None:
-        ctx = sharded.ShardContext(p_axis, ctx.mesh)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    if ctx.axis is not None or getattr(policy, "attend_impl", "kernel") == "piece":
-        return sharded.piece_attend(q, pieces, valids, scale, ctx=ctx)
-    brk = _BREAK.get()
-    if brk is not None:
-        return brk(q, pieces, valids, scale)
-    sizes = [k.shape[1] for k, _ in pieces]
-    k_all = torch.cat([k for k, _ in pieces], dim=1)
-    v_all = torch.cat([v for _, v in pieces], dim=1)
-    valid_all = torch.cat(list(valids), dim=1)
-    out, mass = synapse_attention(q, k_all, v_all, valid_all, scale=scale)
-    return out, list(torch.split(mass, sizes, dim=1))
-
-
 def landmark_score(q, keys, landmarks=None, valid=None, *, scale: float | None = None):
     """Returns (density [B,T] — per-head softmax mass summed over heads,
     min_dist [B,T] or None when ``landmarks`` is None: the kernel skips its
@@ -111,5 +61,4 @@ def landmark_score(q, keys, landmarks=None, valid=None, *, scale: float | None =
     it, the valid-masked softmax over T and the sum over heads included, is
     one launch of the kernel in density mode, which writes no [B,H,T]
     logits; on a CPU tensor the plain version."""
-    scale = 1.0 / (q.shape[-1] ** 0.5) if scale is None else scale
     return _ls.landmark_density(q, keys, landmarks, valid, scale=scale)

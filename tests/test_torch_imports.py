@@ -73,6 +73,34 @@ def test_no_import_of_jax_or_repro_anywhere_in_the_port_or_chip_smoke():
     assert len(files) > 40 and not bad, bad
 
 
+def test_kernels_import_nothing_of_the_port_outside_kernels():
+    """The kernel layer sits under the rest of the port: no import statement
+    of ``repro_torch/kernels/``, the ones inside functions included, names
+    a ``repro_torch`` module outside ``repro_torch.kernels``."""
+    import ast
+
+    files = sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*.py"))
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level > 1:  # relative, above the kernels package
+                    names = ["repro_torch." + (node.module or "")]
+                elif node.level == 1:
+                    names = []
+                elif node.module == "repro_torch":
+                    names = [f"repro_torch.{a.name}" for a in node.names]
+                else:
+                    names = [node.module or ""]
+            else:
+                continue
+            bad += [(f.name, n) for n in names if n.split(".")[0] == "repro_torch"
+                    and n.split(".")[:2] != ["repro_torch", "kernels"]]
+    assert "ops.py" in {f.name for f in files} and not bad, bad
+
+
 def test_tiers_run_on_the_card_hosts_packages(tmp_path):
     """The card's host has no msgpack, zstandard, xxhash, ml_dtypes or JAX:
     with each of them blocked, every port module imports, and a bf16 lane

@@ -172,24 +172,6 @@ def test_all_invalid_row_is_uniform_not_nan():
     np.testing.assert_allclose(mass.numpy(), H / T, rtol=1e-6)
 
 
-def test_synapse_attend_splits_mass_per_piece():
-    B, H, Hkv, D = 2, 8, 2, 64
-    rng = np.random.default_rng(9)
-    sizes = (5, 7, 3)
-    pieces, valids = [], []
-    for t in sizes:
-        k = torch.from_numpy(rng.standard_normal((B, t, Hkv, D), dtype=np.float32))
-        v = torch.from_numpy(rng.standard_normal((B, t, Hkv, D), dtype=np.float32))
-        pieces.append((k, v))
-        valids.append(torch.from_numpy(rng.random((B, t)) < 0.8))
-    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32))
-    out, masses = tops.synapse_attend(q, pieces, valids)
-    out_f, mass_f = tops.synapse_attention(
-        q, torch.cat([k for k, _ in pieces], 1), torch.cat([v for _, v in pieces], 1), torch.cat(valids, 1))
-    assert [m.shape[1] for m in masses] == list(sizes)
-    assert torch.equal(out, out_f) and torch.equal(torch.cat(masses, 1), mass_f)
-
-
 def test_ring_append_writes_one_column():
     ring = torch.full((3, 4), -1, dtype=torch.int32)
     tops.ring_append(ring, torch.tensor([7, 8, 9]), 2)

@@ -115,8 +115,7 @@ def test_sharded_donation_no_peak_doubling(runs, world):
 def test_side_state_is_lane_sharded(runs, world):
     """Each rank allocates max_side / world side lanes (caches on their
     lane dim, dim 1) and the whole river; the river's generator starts
-    alike on every rank, the sides' differently; the side attend goes
-    through piece_attend."""
+    alike on every rank, the sides' differently."""
     ranks, plain = runs
     want = plain["placement"]
     for r in ranks[world]:
@@ -125,7 +124,6 @@ def test_side_state_is_lane_sharded(runs, world):
         assert p["side_bytes"] * world == want["side_bytes"]
         assert p["main_bytes"] == want["main_bytes"] and p["main_tok"] == want["main_tok"]
         assert p["river_gen"] == want["river_gen"] and p["lane_mesh_shape"] == (world,)
-        assert p["side_attend"] == "piece" and want["side_attend"] == "kernel"
     assert len({tuple(r["placement"]["side_gen"]) for r in ranks[world]}) == world
 
 

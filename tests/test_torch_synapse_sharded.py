@@ -5,7 +5,9 @@ cases of ``tests/test_synapse_sharded.py``, on the same numpy inputs, f32.
   axis, the one-hot select and contraction with one) equal the reference's
   and each other bitwise;
 * ``piece_attend`` with no axis is one ``synapse_attention`` call, within
-  1e-5 of the reference's ``decode_attend`` and ``piece_attend``;
+  1e-5 of the reference's ``decode_attend`` and ``piece_attend``, and
+  bitwise that call over the concatenated pieces, its mass split back per
+  piece;
 * ``token_sharding`` scopes are leak-proof and an explicit context wins;
 * an axis without a mesh is refused;
 * the flash-decode combine over 2 gloo ranks (each holding half of every
@@ -85,21 +87,39 @@ def test_piece_attend_matches_decode_attend():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
+def test_piece_attend_splits_mass_per_piece():
+    B, H, Hkv, D = 2, 8, 2, 64
+    rng = np.random.default_rng(9)
+    sizes = (5, 7, 3)
+    pieces, valids = [], []
+    for t in sizes:
+        k = torch.from_numpy(rng.standard_normal((B, t, Hkv, D), dtype=np.float32))
+        v = torch.from_numpy(rng.standard_normal((B, t, Hkv, D), dtype=np.float32))
+        pieces.append((k, v))
+        valids.append(torch.from_numpy(rng.random((B, t)) < 0.8))
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32))
+    out, masses = sh.piece_attend(q, pieces, valids, scale=1.0 / D ** 0.5)
+    out_f, mass_f = ops.synapse_attention(
+        q, torch.cat([k for k, _ in pieces], 1), torch.cat([v for _, v in pieces], 1), torch.cat(valids, 1))
+    assert [m.shape[1] for m in masses] == list(sizes)
+    assert torch.equal(out, out_f) and torch.equal(torch.cat(masses, 1), mass_f)
+
+
 def test_token_sharding_scope_is_leak_proof():
     """The context manager restores the previous placement on exit and on
     error."""
-    assert sh.get_shard_axis() is None
+    assert sh.current_context().axis is None
     with sh.token_sharding("model", mesh="fake-mesh"):
-        assert sh.get_shard_axis() == "model"
+        assert sh.current_context().axis == "model"
         assert sh.current_context().mesh == "fake-mesh"
         with sh.token_sharding(None):  # nested scopes override and restore
-            assert sh.get_shard_axis() is None
-        assert sh.get_shard_axis() == "model"
-    assert sh.get_shard_axis() is None
+            assert sh.current_context().axis is None
+        assert sh.current_context().axis == "model"
+    assert sh.current_context().axis is None
     with pytest.raises(RuntimeError):
         with sh.token_sharding("model"):
             raise RuntimeError("boom")
-    assert sh.get_shard_axis() is None
+    assert sh.current_context().axis is None
 
 
 def test_explicit_ctx_overrides_ambient_scope():

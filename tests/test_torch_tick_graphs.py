@@ -111,12 +111,9 @@ def test_engine_stays_eager_on_the_cpu_and_counts_eager_ticks(setup):
 ])
 def test_graphs_engage_on_a_card_for_proven_layer_kinds_only(arch, engages):
     cfg = get_config(arch, reduced=True)
-    spec = tmodel.CacheSpec(kind="synapse", n_landmarks=8, window=8, n_inject=4)
-    assert tick_graphs.engages(cfg, spec, "cuda", None) is engages
-    assert not tick_graphs.engages(cfg, spec, "cpu", None)
-    assert not tick_graphs.engages(cfg, spec, "cuda", object())  # a lane group
-    piece = dataclasses.replace(spec, policy=dataclasses.replace(spec.policy, attend_impl="piece"))
-    assert not tick_graphs.engages(cfg, piece, "cuda", None)
+    assert tick_graphs.engages(cfg, "cuda", None) is engages
+    assert not tick_graphs.engages(cfg, "cpu", None)
+    assert not tick_graphs.engages(cfg, "cuda", object())  # a lane group
 
 
 def test_side_tick_is_cut_around_each_kernel_call(setup, monkeypatch):

@@ -135,17 +135,17 @@ def test_decode_needs_the_adapters_and_the_reference_steps_as_it_prefills():
 
 def _capture_scales(monkeypatch):
     seen = {}
-    attend, score = ops.synapse_attend, ops.landmark_score
+    attend, score = ops.synapse_attention, ops.landmark_score
 
-    def synapse_attend(q, pieces, valids, *, scale=None, policy=None):
+    def synapse_attention(q, keys, values, valid, *, scale=None, **kw):
         seen["attend"] = scale
-        return attend(q, pieces, valids, scale=scale, policy=policy)
+        return attend(q, keys, values, valid, scale=scale, **kw)
 
     def landmark_score(q, keys, landmarks=None, valid=None, *, scale=None):
         seen["density"] = scale
         return score(q, keys, landmarks, valid, scale=scale)
 
-    monkeypatch.setattr(ops, "synapse_attend", synapse_attend)
+    monkeypatch.setattr(ops, "synapse_attention", synapse_attention)
     monkeypatch.setattr(ops, "landmark_score", landmark_score)
     return seen
 

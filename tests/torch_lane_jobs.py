@@ -166,7 +166,7 @@ def placement(eng) -> dict:
             "side_bytes": nbytes(side), "main_bytes": nbytes(main), "main_tok": tuple(st.main_tok.shape),
             "river_gen": st.gen.get_state().tolist(),
             "side_gen": None if st.side_gen is None else st.side_gen.get_state().tolist(),
-            "lane_mesh_shape": eng.lane_mesh_shape, "side_attend": eng.side_spec.policy.attend_impl}
+            "lane_mesh_shape": eng.lane_mesh_shape}
 
 
 # ---------------------------------------------------------------------------
